@@ -6,12 +6,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``rein48_tpu_torch/csrc`` with ``nvcc``, holds
-each kernel against its plain PyTorch version, drives the port's main
-paths through their entry points (the ``bench`` rollout and full-width
-ResNet depth-0/depth-1 ``evaluate_search``), checks what comes out, and
-prints one line per phase. A failing phase raises, so the script exits
-non-zero. The second-to-last line is a JSON object describing every
-ported kernel; the last line is
+each kernel against its plain PyTorch version at the shapes its main path
+gives it, drives the port's main paths through their entry points (the
+``bench`` rollout, full-width ResNet depth-0/depth-1 ``evaluate_search``,
+the ``SJ_2X4`` n-tuple trainer ``train_ntuple`` in both update modes with
+its depth-0/depth-1 ``evaluate_ntuple``, and ``train --algo ntuple`` of the
+CLI), checks what comes out, and prints one line per phase. Each path runs
+with the kernels' launch counts set to 0 just before it and read just
+after. A failing phase raises, so the script exits non-zero. The
+second-to-last line is a JSON object describing every ported kernel; the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Without a CUDA device it exits 1 and prints no result. It imports no JAX.
@@ -19,7 +23,9 @@ Without a CUDA device it exits 1 and prints no result. It imports no JAX.
 
 from __future__ import annotations
 
+import ast
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -50,6 +56,22 @@ INT32_PIPE_OPS = {"IADD3", "LOP3", "ISETP", "SEL", "SHF", "PRMT", "IMNMX", "LEA"
 # tower rounds ~10 times; the leaf error measured 0.012 and the q error
 # 0.007 with bf16 on the CPU. 0.04 leaves 3x over the leaf error.
 Q_BF16_TOL = 0.04
+# The n-tuple trainer on the "mxu" path at the shape the JAX package measures
+# it (examples/bench_mxu_trainer_tpu.py:54-60): SJ_2X4 (2 tables of 65,536
+# entries, 8 lookups each), B=1024, 128 steps per update.
+NT_B, NT_T = 1024, 128
+NT_UPDATES = {"step": 16, "delayed": 8}  # step mode's tables are then played
+NT_EVAL_ENVS, NT_EVAL_STEPS = 512, 2000
+NT_D1_ENVS, NT_D1_STEPS = 256, 48
+# Scatter sums are reassociated (atomics, in an order that changes from run
+# to run; index_add_ on the card uses atomics too). The rounding of a float32
+# sum grows with the magnitude of its terms, not of its result, so a sum of
+# thousands of TD errors that nearly cancels has no small elementwise relative
+# error. Entries are held at |got - want| <= ATOL + RTOL * S, where S is what
+# the same computation gives on the absolute values of its inputs (the sum of
+# |terms|); S = |want| where no term cancels. RTOL, ATOL are the tolerance
+# of tests/test_ntuple.py::TestMXUBackend.
+TABLE_RTOL, TABLE_ATOL = 1e-5, 1e-6
 
 
 def log(phase: str, **fields) -> None:
@@ -130,6 +152,348 @@ def sass_per_step(lib, kernel: str, steps_per_iteration: int) -> tuple[float, fl
         path.append(prev[path[-1]])
     pipe = sum(ins[i][2] in INT32_PIPE_OPS for i in path)
     return len(path) / steps_per_iteration, pipe / steps_per_iteration
+
+
+def timed(fn, reps: int = 50) -> dict:
+    """Device and host time of one call of ``fn()``, after an untimed call.
+
+    ``ms`` sums the device time of every kernel ``fn`` launches (the
+    profiler's CUDA activity), so a launch-bound call is not timed by its
+    host; ``call_ms`` is the host-bound time per call of a back-to-back
+    loop (CUDA events); ``kernels`` the device time of each kernel.
+    """
+    from rein48_tpu_torch.utils import profiling
+
+    r = profiling.device_breakdown(fn, warmup=1, reps=reps, top=4)
+    call_ms = cuda_ms(fn, reps)
+    return {"ms": r["device_ms"], "call_ms": call_ms, "kernels": {t["kernel"][:40]: t["ms"] for t in r["top"]}}
+
+
+def zero_table_counts() -> None:
+    from rein48_tpu_torch.ops import tables
+
+    for k in tables.launches:
+        tables.launches[k] = 0
+
+
+def close_tables(got, want, scales) -> tuple[bool, float, float]:
+    """Each ``got`` against ``want`` at ``TABLE_ATOL + TABLE_RTOL * scale``.
+
+    Returns (all within, largest absolute difference, largest difference
+    over what the tolerance allows: at most 1 when all are within).
+    """
+    err, ratio = 0.0, 0.0
+    for g, w, sc in zip(got, want, scales):
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        ratio = max(ratio, float((d / (TABLE_ATOL + TABLE_RTOL * sc)).max()))
+    return ratio <= 1.0, err, ratio
+
+
+class Clock:
+    """A trainer logger that keeps each record with the host time it came."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append((time.perf_counter(), record))
+
+    def per_update_s(self) -> list[float]:
+        t = [at for at, _ in self.records]
+        return [b - a for a, b in zip(t, t[1:])]
+
+
+def ntuple_trainer_inputs(dev):
+    """A state a few updates into SJ_2X4 training, and what its steps feed the kernels.
+
+    Returns ``(state, net, gathers, window)``: ``gathers`` maps a call of
+    ``value`` to the lookup indices of table 0 it gathers; ``window`` holds
+    the backups of four steps with the tables frozen, as ``(boards, errs)``
+    pairs, the first of which is one "step" update.
+    """
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.train import ntuple as nt
+
+    cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4, batch_size=NT_B, steps_per_update=NT_T)
+    state, net = nt.init_ntuple(cfg, SEED, dev)
+    step = nt.make_ntuple_step(cfg, dev)
+    for _ in range(3):
+        state, _ = step(state)
+    with torch.no_grad():
+        after, _, _ = nt._all_afterstates(state.env.boards)
+        gathers = {"value(afterstates)": net.indices(after)[0], "value(prev_after)": net.indices(state.prev_after)[0]}
+        env, prev_after, prev_valid, window = state.env, state.prev_after, state.prev_valid, []
+        for _ in range(4):
+            env, prev_after, done, boards, errs, _ = nt._policy_and_backups(net, state.params, env, prev_after, prev_valid)
+            prev_valid = 1.0 - done
+            window.append((boards, errs))
+    return state, net, gathers, window
+
+
+def table_kernel_phase(state, net, gathers, window):
+    """The table kernels against their plain versions at the main path's
+    shapes, their times, the library call's, and the bound by bytes."""
+    from rein48_tpu_torch.ops import tables
+
+    table = state.params["t0"]
+    size = table.numel()
+    lookups = net.num_lookups // len(net.table_sizes)
+
+    gather = {}
+    for what, idx in gathers.items():
+        got, want = tables.mxu_gather(table, idx), tables.gather_reference(table, idx)
+        equal = bool(torch.equal(got, want))
+        n = idx.numel()
+        touched = int(torch.unique(idx).numel())
+        k = timed(lambda idx=idx: tables.mxu_gather(table, idx))
+        # The library call is table[idx], which is also the plain version.
+        p = timed(lambda idx=idx: tables.gather_reference(table, idx))
+        # Each index read and each value written once, each touched entry read once.
+        bound_ms = 1e3 * (8 * n + 4 * touched) / HBM_BYTES_PER_S
+        log("tables/gather", call=what, n=n, table=size, touched=touched, equal=equal, ms=k["ms"],
+            call_ms=round(k["call_ms"], 5), plain_ms=p["ms"], plain_call_ms=round(p["call_ms"], 5),
+            bound_ms=round(bound_ms, 6), kernels=json.dumps(k["kernels"]), plain_kernels=json.dumps(p["kernels"]))
+        if not equal:
+            raise AssertionError(f"gather kernel differs from table[idx] ({what})")
+        gather[what] = dict(n=n, ms=k["ms"], plain_ms=p["ms"], library_ms=p["ms"], bound_ms=bound_ms)
+
+    scatter = {}
+    forms = [("stats", 1), ("stats", 4), ("sum", 1)]  # one "step" update, a delayed window of 4
+    for form, steps in forms:
+        boards = torch.cat([b for b, _ in window[:steps]])
+        errs = torch.cat([e for _, e in window[:steps]])
+        idx = net.indices(boards)[0].reshape(-1)
+        vals = errs[:, None].expand(-1, lookups).reshape(-1).contiguous()
+        stats = form == "stats"
+        if stats:
+            got = tables.mxu_scatter_stats(size, idx, vals)
+            kernel = lambda idx=idx, vals=vals: tables.mxu_scatter_stats(size, idx, vals)
+        else:
+            got = (tables.mxu_scatter_sum(size, idx, vals),)
+            kernel = lambda idx=idx, vals=vals: tables.mxu_scatter_sum(size, idx, vals)
+        want = tables.scatter_reference(size, idx, vals, stats)
+        abs_terms = tables.scatter_reference(size, idx, vals.abs(), stats=False)[0]
+        ok, err, ratio = close_tables(got[:2], want[:2], [abs_terms, abs_terms])
+        hits_equal = not stats or bool(torch.equal(got[2], want[2]))
+        again = kernel() if stats else (kernel(),)
+        rerun_equal = all(bool(torch.equal(a, b)) for a, b in zip(again, got))
+        n = idx.numel()
+        k = timed(kernel)
+        p = timed(lambda idx=idx, vals=vals, stats=stats: tables.scatter_reference(size, idx, vals, stats))
+        chans = [vals, vals.abs(), (vals != 0).to(torch.float32)] if stats else [vals]
+
+        def library(idx=idx, chans=chans):
+            out = torch.zeros((len(chans), size), dtype=torch.float32, device=idx.device)
+            for row, c in zip(out, chans):
+                row.index_add_(0, idx, c)
+
+        lib = timed(library)
+        # Each index and value read once, each dense output written once.
+        bound_ms = 1e3 * (8 * n + 4 * size * len(chans)) / HBM_BYTES_PER_S
+        hot = int(torch.bincount(idx[vals != 0], minlength=size).max())
+        log("tables/scatter", form=form, n=n, table=size, zeros=int((vals == 0).sum()), hottest_entry_hits=hot,
+            within_tol=ok, hits_equal=hits_equal, max_abs_err=f"{err:.3g}", err_over_tol=f"{ratio:.3g}",
+            second_run_bit_equal=rerun_equal, ms=k["ms"], call_ms=round(k["call_ms"], 5), plain_ms=p["ms"],
+            plain_call_ms=round(p["call_ms"], 5), library_ms=lib["ms"], library_call_ms=round(lib["call_ms"], 5),
+            bound_ms=round(bound_ms, 6), kernels=json.dumps(k["kernels"]), library_kernels=json.dumps(lib["kernels"]))
+        if not (ok and hits_equal):
+            raise AssertionError(f"scatter kernel ({form}, n={n}) disagrees with its plain version")
+        scatter[(form, n)] = dict(n=n, ms=k["ms"], plain_ms=p["ms"], library_ms=lib["ms"], bound_ms=bound_ms, err=err, ratio=ratio)
+    return gather, scatter
+
+
+def ntuple_network_phase(state, net, window):
+    """``"mxu"`` against ``"torch"`` on the card: value and the TD updates."""
+    from rein48_tpu_torch.train import ntuple as nt
+
+    plain = nt.get_network(dataclasses.replace(net.config, backend="torch"))
+    boards = torch.cat([b for b, _ in window])
+    errs = torch.cat([e for _, e in window])
+    with torch.no_grad():
+        equal = bool(torch.equal(net.value(state.params, boards), plain.value(state.params, boards)))
+        log("ntuple/mxu-vs-torch", fn="value", boards=boards.shape[0], equal=equal)
+        ok, worst = equal, 0.0
+        checks = [("td_apply_tc", lambda n, p, e: n.td_apply_tc(p, window[0][0], e, 1.0), window[0][1], True)]
+        for tc in (True, False):
+            checks.append((f"td_apply_delayed(tc={tc})", lambda n, p, e, tc=tc: n.td_apply_delayed(p, boards, e, 1.0, tc=tc), errs, tc))
+        for name, fn, e, tc in checks:
+            keys = [k for k in state.params if tc or "_" not in k]
+            a = fn(net, {k: state.params[k].clone() for k in keys}, e)
+            b = fn(plain, {k: state.params[k].clone() for k in keys}, e)
+            # The same update on absolute values bounds each entry's terms.
+            scale = fn(plain, {k: state.params[k].abs() for k in keys}, e.abs())
+            ok_k, err_k, ratio = close_tables([a[k] for k in keys], [b[k] for k in keys], [scale[k] for k in keys])
+            log("ntuple/mxu-vs-torch", fn=name, within_tol=ok_k, max_abs_err=f"{err_k:.3g}", err_over_tol=f"{ratio:.3g}")
+            ok &= ok_k
+            worst = max(worst, err_k)
+    if not ok:
+        raise AssertionError("the mxu backend disagrees with the torch backend on the card")
+    return worst
+
+
+def paired_updates(dev, mode: str, rounds: int = 2) -> dict:
+    """Host seconds per update of ``make_ntuple_step`` under ``"mxu"`` and
+    ``"torch"``, taken in turns (mxu, torch, torch, mxu) after a warm-up
+    update each, so that both backends see the same host."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.train import ntuple as nt
+
+    states, steps, times = {}, {}, {"mxu": [], "torch": []}
+    for backend in times:
+        cfg = nt.NTupleTrainConfig(
+            tuples=ntuple.SJ_2X4, batch_size=NT_B, steps_per_update=NT_T, update_mode=mode, table_backend=backend
+        )
+        steps[backend] = nt.make_ntuple_step(cfg, dev)
+        states[backend] = steps[backend](nt.init_ntuple(cfg, SEED, dev)[0])[0]
+    for _ in range(rounds):
+        for backend in ("mxu", "torch", "torch", "mxu"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[backend], metrics = steps[backend](states[backend])
+            float(metrics["td_abs_err"])  # waits for the update
+            times[backend].append(time.perf_counter() - t0)
+    return times
+
+
+def ntuple_trainer_phase(dev):
+    """``train_ntuple`` through its entry point with ``table_backend="auto"``
+    (the kernels) in both update modes, ``"mxu"`` against ``"torch"`` paired
+    update by update, and depth-0 play of the trained tables against the
+    untrained ones."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.ops import tables
+    from rein48_tpu_torch.train import ntuple as nt
+
+    launched = {k: 0 for k in tables.launches}
+    trained = None
+    for mode, updates in NT_UPDATES.items():
+        cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4, batch_size=NT_B, steps_per_update=NT_T, update_mode=mode)
+        resolved = cfg.network_config(dev).backend
+        if resolved != "mxu":
+            raise AssertionError(f"table_backend='auto' resolved to {resolved!r} for SJ_2X4 on {dev}")
+        clock = Clock()
+        zero_table_counts()
+        state, history = nt.train_ntuple(cfg, updates, seed=SEED, log_every=1, logger=clock, device=dev)
+        counts = dict(tables.launches)
+        # Per env step: 2 tables x (afterstates + prev_after) gathers; per
+        # step ("step") or per window ("delayed"), one stats scatter per table.
+        scatters = NT_T if mode == "step" else NT_T // cfg.delay_window
+        want = {"table_gather": 4 * NT_T * updates, "table_scatter": 2 * scatters * updates}
+        if counts != want:
+            raise AssertionError(f"train_ntuple({mode}) launched {counts}, expected {want}")
+        for k in launched:
+            launched[k] += counts[k]
+        rates = [NT_B * NT_T / dt for dt in clock.per_update_s()]  # after the first update
+        last = history[-1]
+        log(
+            "ntuple/train", mode=mode, table_backend="auto", resolved=resolved, B=NT_B, T=NT_T, updates=updates,
+            launches=json.dumps(counts), launches_per_update=json.dumps({k: v // updates for k, v in counts.items()}),
+            env_steps_per_s_median=round(float(np.median(rates)), 1), env_steps_per_s=[round(r, 1) for r in rates],
+            td_abs_err=round(last["td_abs_err"], 4), avg_episode_score=round(last["avg_episode_score"], 1),
+            best_tile=last["best_tile"],
+        )
+        if not all(np.isfinite(v) for v in last.values()):
+            raise AssertionError(f"train_ntuple({mode}) metrics not finite: {last}")
+        if mode == "step":
+            trained = state
+        times = paired_updates(dev, mode)
+        log("ntuple/train-paired", mode=mode, order="mxu,torch,torch,mxu x2", **{
+            f"{b}_env_steps_per_s": [round(NT_B * NT_T / t, 1) for t in ts] for b, ts in times.items()
+        }, mxu_over_torch=round(float(np.median(times["torch"]) / np.median(times["mxu"])), 4))
+    cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4)
+    net = nt.get_network(cfg.network_config(dev))
+    scores = {}
+    for name, params in (("untrained", net.init_tc(dev)), ("trained", trained.params)):
+        zero_table_counts()
+        t0 = time.perf_counter()
+        stats = nt.evaluate_ntuple(
+            params, cfg, depth=0, num_envs=NT_EVAL_ENVS, num_steps=NT_EVAL_STEPS, seed=SEED, protocol="first", device=dev
+        )
+        wall = time.perf_counter() - t0
+        for k in launched:
+            launched[k] += tables.launches[k]
+        scores[name] = stats["avg_score"]
+        log("ntuple/eval-depth0", tables=name, envs=NT_EVAL_ENVS, steps=NT_EVAL_STEPS, wall_s=round(wall, 3),
+            gathers=tables.launches["table_gather"], stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+    if not scores["trained"] > 1.3 * scores["untrained"]:
+        raise AssertionError(f"trained tables do not beat the untrained ones at depth 0: {scores}")
+    return trained, launched
+
+
+def ntuple_depth1_phase(trained, dev):
+    """Depth-1 ``evaluate_ntuple`` with the trained tables, timed after a
+    warm-up, and every chosen action legal."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.engine import core, vector
+    from rein48_tpu_torch.ops import tables
+    from rein48_tpu_torch.train import evaluate
+    from rein48_tpu_torch.train import ntuple as nt
+
+    cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4)
+
+    def run(num_steps):
+        return nt.evaluate_ntuple(
+            trained.params, cfg, depth=1, num_envs=NT_D1_ENVS, num_steps=num_steps, seed=SEED + 5,
+            protocol="first", chance_chunk=4, device=dev,
+        )
+
+    run(4)  # untimed warm-up at the same shapes
+    walls = []
+    zero_table_counts()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        stats = run(NT_D1_STEPS)
+        walls.append(time.perf_counter() - t0)
+    launched = dict(tables.launches)
+    # Per step: 8 chance chunks, each of envs x 64 leaf boards that make_leaf
+    # cuts into chunks of 4,096, each gathering from 2 tables (64 at 256 envs).
+    per_step = 8 * -(-NT_D1_ENVS * 64 // 4096) * 2
+    if launched != {"table_gather": per_step * 2 * NT_D1_STEPS, "table_scatter": 0}:
+        raise AssertionError(f"depth-1 evaluate_ntuple launched {launched}")
+    if not all(np.isfinite(v) for v in stats.values()) or stats["episodes"] != NT_D1_ENVS:
+        raise AssertionError(f"depth-1 n-tuple stats malformed: {stats}")
+    log("ntuple/eval-depth1", envs=NT_D1_ENVS, steps=NT_D1_STEPS, chance_chunk=4, launches=json.dumps(launched),
+        ms_per_step=[round(1e3 * w / NT_D1_STEPS, 3) for w in walls], stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+
+    policy = nt._get_ntuple_policy(cfg.network_config(dev), 1, 4)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def checked(boards):
+        nonlocal bad
+        actions = policy(trained.params, boards)
+        legal = core.legal_action_mask(boards)
+        bad = bad + (legal.any(-1) & ~legal.gather(-1, actions[:, None])[:, 0]).sum()
+        return actions
+
+    with torch.no_grad():
+        evaluate._first_episode_rollout(vector.reset_batch(SEED + 5, NT_D1_ENVS, dev), policy_fn=checked, num_steps=32)
+    log("ntuple/eval-depth1/legal", steps=32, illegal_choices=int(bad))
+    if int(bad):
+        raise AssertionError("depth-1 n-tuple planner chose an illegal action")
+    return launched
+
+
+def ntuple_cli_phase(dev):
+    """``train --algo ntuple`` at the CLI's defaults: the YEH_4X6 flagship
+    (4 tables of 16.7M entries with TC accumulators) on the plain path."""
+    from rein48_tpu_torch import cli
+    from rein48_tpu_torch.ops import tables
+
+    argv = ["train", "--algo", "ntuple", "--updates", "3", "--batch-size", "1024", "--unroll", "64", "--log-every", "1"]
+    out, err = io.StringIO(), io.StringIO()
+    zero_table_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    final = ast.literal_eval(err.getvalue().split("final: ", 1)[1].strip())
+    walls = [float(ln.split("wall_time=")[1].split()[0]) for ln in out.getvalue().splitlines() if "wall_time=" in ln]
+    per_update = [b - a for a, b in zip(walls, walls[1:])]
+    log("ntuple/cli", argv=" ".join(argv), rc=rc, table_launches=json.dumps(tables.launches),
+        env_steps_per_s_after_first=[round(1024 * 64 / dt, 1) for dt in per_update if dt > 0],
+        final=json.dumps(final), peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3))
+    if rc != 0 or final["update"] != 3 or not np.isfinite(final["td_abs_err"]) or any(tables.launches.values()):
+        raise AssertionError(f"train --algo ntuple failed: {final}")
 
 
 def run_cli(argv) -> dict:
@@ -319,6 +683,57 @@ def main() -> int:
             "int32_pipe_per_env_step": per_step_int32,
             "library_ms": None,
         }
+    ]
+    # 7-11. The n-tuple family: the table kernels against their plain
+    # versions at the trainer's shapes, the network's two backends on the
+    # card, then the main paths with the counts at 0: the trainer in both
+    # update modes with its depth-0 and depth-1 evaluation, and the CLI.
+    state, net, gathers, window = ntuple_trainer_inputs(dev)
+    gather, scatter = table_kernel_phase(state, net, gathers, window)
+    net_err = ntuple_network_phase(state, net, window)
+    del state
+    trained, table_launches = ntuple_trainer_phase(dev)
+    for k, v in ntuple_depth1_phase(trained, dev).items():
+        table_launches[k] += v
+    del trained
+    ntuple_cli_phase(dev)
+    for k, v in table_launches.items():
+        if v <= 0:
+            raise AssertionError(f"the n-tuple main paths launched no {k} kernel")
+    g, sc = gather["value(afterstates)"], scatter[("stats", NT_B * 2 * 8)]
+    kernels += [
+        {
+            "name": "table_gather",
+            "route": "cuda",
+            "source": "rein48_tpu_torch/csrc/tables.cu",
+            "replaces": "rein48_tpu/ops/tables.py:102",
+            "launches": table_launches["table_gather"],
+            "equal": True,
+            "max_abs_err": 0.0,
+            "n": g["n"],
+            "ms": g["ms"],
+            "plain_ms": g["plain_ms"],
+            "bound_ms": round(g["bound_ms"], 6),
+            "bound_by": "bytes",
+            "library_ms": g["library_ms"],
+        },
+        {
+            "name": "table_scatter",
+            "route": "cuda",
+            "source": "rein48_tpu_torch/csrc/tables.cu",
+            "replaces": "rein48_tpu/ops/tables.py:161",
+            "launches": table_launches["table_scatter"],
+            "equal": True,
+            "max_abs_err": max(max(v["err"] for v in scatter.values()), net_err),
+            "tolerance": {"rtol": TABLE_RTOL, "atol": TABLE_ATOL},
+            "err_over_tol": max(v["ratio"] for v in scatter.values()),
+            "n": sc["n"],
+            "ms": sc["ms"],
+            "plain_ms": sc["plain_ms"],
+            "bound_ms": round(sc["bound_ms"], 6),
+            "bound_by": "bytes",
+            "library_ms": sc["library_ms"],
+        },
     ]
     log("kernels", total_seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)

@@ -58,25 +58,33 @@ def library_path(name: str) -> Path:
 def build(names=None) -> dict[str, dict]:
     """Compile the named kernels (default: all) that are not built yet.
 
+    Starts one ``nvcc`` per source, all at once, and waits for them all.
     Returns ``{name: {"seconds": s, "log": compiler output}}`` for the
     kernels it compiled; raises with the compiler's output if one fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    report = {}
+    t0 = time.perf_counter()
+    procs = {}
     for name in sources() if names is None else names:
         out = library_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        procs[name] = (proc, tmp, out)
+    report, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log = proc.communicate()[0]
         if proc.returncode:
-            raise RuntimeError(f"kernel build failed: {name}: nvcc exited {proc.returncode}\n{proc.stdout}")
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
         os.replace(tmp, out)
-        report[name] = {"seconds": time.perf_counter() - t0, "log": proc.stdout}
+        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return report
 
 

@@ -4,10 +4,12 @@
 
     python -m rein48_tpu_torch bench --batch 65536 --unroll 2048
     python -m rein48_tpu_torch eval --algo search --depth 1 --num-envs 256
+    python -m rein48_tpu_torch train --algo ntuple --updates 200
 
-Ported so far: ``bench`` and ``eval --algo search``. The other
-subcommands and algorithms exist with the JAX CLI's names and say that
-they are not yet ported. Everything runs on ``cuda`` unless
+Ported so far: ``bench``, ``eval --algo search`` and ``train --algo
+ntuple``. The other subcommands, algorithms and flags exist with the JAX
+CLI's names and say that they are not yet ported. The table backend
+``torch`` is the JAX CLI's ``xla``. Everything runs on ``cuda`` unless
 ``--device cpu`` is given.
 """
 
@@ -30,6 +32,38 @@ def _not_ported(what: str):
         raise SystemExit(f"{what} is not yet ported to rein48_tpu_torch")
 
     return fn
+
+
+def _cmd_train(args: argparse.Namespace) -> int:
+    if args.algo != "ntuple":
+        raise SystemExit(f"train --algo {args.algo} is not yet ported to rein48_tpu_torch")
+    for flag in ("mesh", "parity", "checkpoint_dir"):
+        if getattr(args, flag) not in (None, False):
+            raise SystemExit(f"train --{flag.replace('_', '-')} is not yet ported to rein48_tpu_torch")
+    from rein48_tpu_torch.train.ntuple import NTupleTrainConfig, train_ntuple
+    from rein48_tpu_torch.utils.metrics import MetricLogger
+
+    kwargs = {} if args.alpha is None else {"alpha": args.alpha}
+    if args.delay_window is not None:
+        # 0 is a whole-update window (None); unset keeps the trainer's default.
+        kwargs["delay_window"] = args.delay_window or None
+    config = NTupleTrainConfig(
+        batch_size=args.batch_size,
+        steps_per_update=args.unroll,
+        update_mode=args.update_mode,
+        table_backend=args.table_backend,
+        **kwargs,
+    )
+    logger = MetricLogger(log_dir=args.log_dir)
+    try:
+        _, history = train_ntuple(
+            config, num_updates=args.updates, seed=args.seed, log_every=args.log_every, logger=logger, device=args.device
+        )
+    finally:
+        logger.close()
+    if history:
+        print(f"final: {history[-1]}", file=sys.stderr)
+    return 0
 
 
 def _cmd_eval(args: argparse.Namespace) -> int:
@@ -111,8 +145,33 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="rein48_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    for name in ("play", "train", "parity"):
+    for name in ("play", "parity"):
         sub.add_parser(name, help=f"{name} (not yet ported)").set_defaults(fn=_not_ported(name))
+
+    pt = sub.add_parser("train", help="train an agent (ported: --algo ntuple)")
+    pt.add_argument("--algo", choices=("a3c", "ppo", "dqn", "ddpg", "ntuple", "afterstate"), default="a3c")
+    pt.add_argument("--updates", type=int, default=200)
+    pt.add_argument("--batch-size", type=int, default=4096)
+    pt.add_argument("--unroll", type=int, default=32)
+    pt.add_argument("--alpha", type=float, default=None, help="TD learning rate (default: the trainer's)")
+    pt.add_argument("--update-mode", choices=("step", "delayed"), default="step")
+    pt.add_argument(
+        "--delay-window", type=int, default=None,
+        help="--update-mode delayed: env steps per frozen-table window (must divide --unroll; 0 = whole update)",
+    )
+    pt.add_argument(
+        "--table-backend", choices=("auto", "torch", "mxu"), default="auto",
+        help="torch = plain index ops (the JAX CLI's xla); mxu = the table kernels, tables <= 65536 entries; "
+        "auto takes mxu on cuda when every table qualifies",
+    )
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--mesh", action="store_true", help="not yet ported")
+    pt.add_argument("--parity", action="store_true", help="not yet ported")
+    pt.add_argument("--log-dir", default=None)
+    pt.add_argument("--log-every", type=int, default=10)
+    pt.add_argument("--checkpoint-dir", default=None, help="not yet ported")
+    pt.add_argument("--device", default=None, help="cuda (default) or cpu")
+    pt.set_defaults(fn=_cmd_train)
 
     pe = sub.add_parser("eval", help="evaluate the expectimax planner")
     pe.add_argument("--algo", choices=("a3c", "ppo", "dqn", "search", "ntuple"), default="a3c")

@@ -1,15 +1,21 @@
 # Copyright 2026 The rein48-tpu Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Carry Flax ``ResNetPolicy`` parameters across to the port's module.
+"""Carry the JAX package's weights across to the port.
 
-The input is the Flax ``params`` tree with its leaves as numpy arrays
+The inputs are the JAX parameters with their leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
-Convolution kernels go from HWIO to OIHW and dense kernels from
-``[in, out]`` to ``[out, in]``. The port's heads flatten channels last in
-the same (h, w, c) order as Flax, so no dense weight is permuted.
+
+* Flax ``ResNetPolicy``: convolution kernels go from HWIO to OIHW and
+  dense kernels from ``[in, out]`` to ``[out, in]``. The port's heads
+  flatten channels last in the same (h, w, c) order as Flax, so no dense
+  weight is permuted.
+* N-tuple tables: the same keys and flat float32 tables.
 """
 
 from __future__ import annotations
+
+import re
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -56,3 +62,30 @@ def resnet_from_flax(params, dtype=torch.bfloat16) -> ResNetPolicy:
     model = ResNetPolicy(channels=channels, num_blocks=num_blocks, dtype=dtype)
     model.load_state_dict(params_from_flax(params))
     return model
+
+
+_NTUPLE_KEY = re.compile(r"t(\d+)(_E|_A)?")
+
+
+def ntuple_params_from_jax(params: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """The port's n-tuple tables from the JAX package's, on ``device``.
+
+    Keys stay as they are (``t{i}``, and ``t{i}_E``/``t{i}_A`` with
+    temporal coherence). Each table must be flat with ``16**k`` entries and
+    each accumulator as long as its table. The ``"cached"`` backend's
+    row maps (``t{i}_rm``, ``t{i}_hot``) are not yet ported and raise.
+    """
+    out = {}
+    for key, value in params.items():
+        m = _NTUPLE_KEY.fullmatch(key)
+        if m is None:
+            raise ValueError(f"unexpected n-tuple parameter '{key}' (the 'cached' backend is not yet ported)")
+        arr = np.asarray(value)
+        n = arr.shape[0] if arr.ndim == 1 else -1
+        if n < 16 or 16 ** round(np.log(n) / np.log(16)) != n:
+            raise ValueError(f"'{key}' must be a flat table of 16**k entries, got shape {arr.shape}")
+        table = np.asarray(params.get(f"t{m.group(1)}", ()))
+        if arr.shape != table.shape:
+            raise ValueError(f"'{key}' has shape {arr.shape}, its table 't{m.group(1)}' {table.shape}")
+        out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C")).to(device)
+    return out

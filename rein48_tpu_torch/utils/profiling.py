@@ -7,7 +7,9 @@ reports, per call: host wall time, device kernel time, the device's busy
 share (kernel time over wall time; one stream, so kernels do not
 overlap), the number of kernel launches, and the kernels that take the
 most device time. Run as a script on a card, it profiles one call of each
-main path of the port at the sizes ``chip_smoke.py`` drives:
+main path of the port at the sizes ``chip_smoke.py`` drives (the rollout,
+ResNet serving, one update of the SJ_2X4 n-tuple trainer per update mode
+and table backend, and one step of n-tuple depth-1 evaluation):
 
     python -m rein48_tpu_torch.utils.profiling
 
@@ -46,12 +48,12 @@ def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dic
     device_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
     kernels.sort(key=_device_us, reverse=True)
     return {
-        "wall_ms": round(wall_ms, 3),
-        "device_ms": round(device_ms, 3),
+        "wall_ms": round(wall_ms, 4),
+        "device_ms": round(device_ms, 6),
         "busy_share": round(device_ms / wall_ms, 4) if wall_ms else None,
         "launches": sum(e.count for e in kernels) // reps,
         "top": [
-            {"kernel": e.key[:80], "ms": round(_device_us(e) / 1e3 / reps, 3), "calls": e.count // reps}
+            {"kernel": e.key[:80], "ms": round(_device_us(e) / 1e3 / reps, 6), "calls": e.count // reps}
             for e in kernels[:top]
         ],
     }
@@ -80,6 +82,34 @@ def main() -> None:
             vector.step_autoreset(st, policy(st.boards))
 
         out[f"serve depth={depth} envs={envs} chance_chunk={chunk} (one step)"] = device_breakdown(step)
+
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.train import ntuple as nt
+
+    trained = None
+    for backend in ("mxu", "torch"):
+        for mode in ("step", "delayed"):
+            cfg = nt.NTupleTrainConfig(
+                tuples=ntuple.SJ_2X4, batch_size=1024, steps_per_update=128, update_mode=mode, table_backend=backend
+            )
+            box = list(nt.init_ntuple(cfg, 0, dev))
+            step = nt.make_ntuple_step(cfg, dev)
+
+            def update(box=box, step=step):
+                box[0] = step(box[0])[0]
+
+            name = f"ntuple train {mode} backend={backend} B=1024 T=128 (one update)"
+            out[name] = device_breakdown(update, warmup=2, reps=2, top=8)
+            if (backend, mode) == ("mxu", "step"):
+                trained = box[0]
+    policy = nt._get_ntuple_policy(nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4).network_config(dev), 1, 4)
+    st = vector.reset_batch(123, 256, dev)
+
+    @torch.no_grad()
+    def ntuple_step(st=st):
+        vector.step_autoreset(st, policy(trained.params, st.boards))
+
+    out["ntuple eval depth=1 envs=256 chance_chunk=4 backend=mxu (one step)"] = device_breakdown(ntuple_step)
     for name, r in out.items():
         print(json.dumps({"path": name, "card": card, **r}))
 

@@ -15,7 +15,9 @@ from __future__ import annotations
 import pytest
 import torch
 
+from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
+from rein48_tpu_torch.ops import tables
 
 pytestmark = pytest.mark.cuda
 
@@ -55,3 +57,82 @@ def test_rollout_kernel_rejects_bad_words(cuda):
     with pytest.raises(ValueError, match="bits must be"):
         fused.rollout_random_fused(state, 0, 8, bits=philox.philox_bits(0, 7, 256, device=cuda))
     assert fused.launches == before
+
+
+def assert_sums_close(got, want, scale):
+    """Reassociated float32 sums: |got - want| <= 1e-6 + 1e-5 * scale, where
+    ``scale`` sums the magnitudes of each entry's terms (the rounding of a
+    sum grows with its terms, not with its result, which may cancel)."""
+    excess = (got - want).abs() - (1e-6 + 1e-5 * scale)
+    assert float(excess.max()) <= 0.0, float(excess.max())
+
+
+def table_inputs(n: int, size: int, device, seed: int = 0):
+    """Indices with heavy collisions (a third on a few hot entries), values
+    with a share of exact zeros of both signs."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, size, (n,), generator=g, dtype=torch.int32)
+    hot = torch.rand(n, generator=g) < 0.3
+    idx[hot] = torch.randint(0, 4, (int(hot.sum()),), generator=g, dtype=torch.int32)
+    vals = torch.randn(n, generator=g)
+    vals[torch.rand(n, generator=g) < 0.2] = 0.0
+    vals[torch.rand(n, generator=g) < 0.05] = -0.0
+    return idx.to(device), vals.to(device)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65537])
+@pytest.mark.parametrize("size", [4096, 65536])
+def test_table_gather_kernel_is_bit_equal(cuda, n, size):
+    table = torch.randn(size, generator=torch.Generator().manual_seed(n)).to(cuda)
+    idx, _ = table_inputs(n, size, cuda)
+    before = dict(tables.launches)
+    got = tables.mxu_gather(table, idx.reshape(1, -1))
+    assert tables.launches["table_gather"] == before["table_gather"] + 1
+    assert got.shape == (1, n) and torch.equal(got[0], tables.gather_reference(table, idx))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65537])
+def test_table_scatter_kernel_matches_plain(cuda, n):
+    size = 65536
+    idx, vals = table_inputs(n, size, cuda, seed=n)
+    before = dict(tables.launches)
+    got = tables.mxu_scatter_stats(size, idx, vals)
+    got_sum = tables.mxu_scatter_sum(size, idx, vals)
+    assert tables.launches["table_scatter"] == before["table_scatter"] + 2
+    want = tables.scatter_reference(size, idx, vals, stats=True)
+    # Atomics add in an order that changes from run to run: sums to a tolerance.
+    assert_sums_close(got[0], want[0], want[1])
+    assert_sums_close(got[1], want[1], want[1])
+    assert_sums_close(got_sum, want[0], want[1])
+    assert torch.equal(got[2], want[2])  # hits: exact counts of nonzero values
+
+
+def test_table_kernels_reject_bad_inputs(cuda):
+    table = torch.zeros(256, device=cuda)
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    before = dict(tables.launches)
+    with pytest.raises(ValueError, match="idx must be torch.int32"):
+        tables.mxu_gather(table, idx.long())
+    with pytest.raises(ValueError, match="idx must be torch.int32 on cuda"):
+        tables.mxu_gather(table, idx.cpu())
+    with pytest.raises(ValueError, match="vals must be torch.float32"):
+        tables.mxu_scatter_stats(256, idx, torch.zeros(8, dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tables.mxu_scatter_sum(256, idx, torch.zeros((8, 2), device=cuda)[:, 0])
+    assert tables.launches == before
+
+
+def test_ntuple_mxu_backend_matches_torch_backend(cuda):
+    mxu = ntuple.NTupleNetwork(ntuple.NTupleConfig(tuples=ntuple.SJ_2X4, backend="mxu"))
+    plain = ntuple.NTupleNetwork(ntuple.NTupleConfig(tuples=ntuple.SJ_2X4, backend="torch"))
+    g = torch.Generator().manual_seed(3)
+    boards = torch.randint(0, 8, (512, 4, 4), generator=g, dtype=torch.uint8).to(cuda)
+    err = torch.randn(512, generator=g).to(cuda)
+    a, b, scale = mxu.init_tc(cuda), plain.init_tc(cuda), plain.init_tc(cuda)
+    for _ in range(3):
+        mxu.td_apply_tc(a, boards, err, 1.0)
+        plain.td_apply_tc(b, boards, err, 1.0)
+        plain.td_apply_tc(scale, boards, err.abs(), 1.0)  # the same update on magnitudes
+    for k in b:
+        assert_sums_close(a[k], b[k], scale[k].abs())
+    assert torch.equal(mxu.value(a, boards), plain.value(a, boards))
