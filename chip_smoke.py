@@ -10,8 +10,10 @@ each kernel against its plain PyTorch version at the shapes its main path
 gives it, drives the port's main paths through their entry points (the
 ``bench`` rollout, full-width ResNet depth-0/depth-1 ``evaluate_search``,
 the ``SJ_2X4`` n-tuple trainer ``train_ntuple`` in both update modes with
-its depth-0/depth-1 ``evaluate_ntuple``, and ``train --algo ntuple`` of the
-CLI), checks what comes out, and prints one line per phase. Each path runs
+its depth-0/depth-1 ``evaluate_ntuple``, the ``YEH_4X6`` trainer on the
+``"cached"`` hot-prefix backend in both update modes with its depth-0
+``evaluate_ntuple``, and ``train --algo ntuple`` of the CLI), checks what
+comes out, and prints one line per phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -63,6 +65,16 @@ NT_B, NT_T = 1024, 128
 NT_UPDATES = {"step": 16, "delayed": 8}  # step mode's tables are then played
 NT_EVAL_ENVS, NT_EVAL_STEPS = 512, 2000
 NT_D1_ENVS, NT_D1_STEPS = 256, 48
+# The "cached" trainer at the flagship's width and the JAX package's cached
+# defaults (examples/bench_cached_trainer_tpu.py:51-57): YEH_4X6 (4 tables of
+# 16,777,216 entries), 2048 prefix rows, 16 cold rows per block, B=1024,
+# T=128, delayed/4 with TC; a refresh every 2 updates, so that one falls
+# inside the run. 8192 prefix rows (NTupleConfig's default) runs only if
+# 2048 never takes the fast branch.
+HP_PREFIX_ROWS = (2048, 8192)
+HP_UPDATES = {"delayed": 4, "step": 2}
+HP_REFRESH_EVERY = 2
+HP_EVAL_ENVS, HP_EVAL_STEPS = 512, 1500
 # Scatter sums are reassociated (atomics, in an order that changes from run
 # to run; index_add_ on the card uses atomics too). The rounding of a float32
 # sum grows with the magnitude of its terms, not of its result, so a sum of
@@ -170,10 +182,14 @@ def timed(fn, reps: int = 50) -> dict:
 
 
 def zero_table_counts() -> None:
-    from rein48_tpu_torch.ops import tables
+    """Set the launch counts of both table modules and the cached window
+    branch counts to 0."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.ops import hbm_tables, tables
 
-    for k in tables.launches:
-        tables.launches[k] = 0
+    for counts in (tables.launches, hbm_tables.launches, ntuple.cached_windows):
+        for k in counts:
+            counts[k] = 0
 
 
 def close_tables(got, want, scales) -> tuple[bool, float, float]:
@@ -332,22 +348,26 @@ def ntuple_network_phase(state, net, window):
     return worst
 
 
-def paired_updates(dev, mode: str, rounds: int = 2) -> dict:
-    """Host seconds per update of ``make_ntuple_step`` under ``"mxu"`` and
-    ``"torch"``, taken in turns (mxu, torch, torch, mxu) after a warm-up
-    update each, so that both backends see the same host."""
+def paired_updates(dev, mode: str, backends=("mxu", "torch"), rounds: int = 2, **cfg) -> dict:
+    """Host seconds per update of ``make_ntuple_step`` under two backends,
+    taken in turns (a, b, b, a) after a warm-up update each through
+    ``train_ntuple``, so that both backends see the same host. ``cfg``
+    defaults to SJ_2X4; ``"cached"`` refreshes its permutation after the
+    warm-up, from real heat."""
     from rein48_tpu_torch.agents import ntuple
     from rein48_tpu_torch.train import ntuple as nt
 
-    states, steps, times = {}, {}, {"mxu": [], "torch": []}
-    for backend in times:
-        cfg = nt.NTupleTrainConfig(
-            tuples=ntuple.SJ_2X4, batch_size=NT_B, steps_per_update=NT_T, update_mode=mode, table_backend=backend
-        )
-        steps[backend] = nt.make_ntuple_step(cfg, dev)
-        states[backend] = steps[backend](nt.init_ntuple(cfg, SEED, dev)[0])[0]
+    cfg = {"tuples": ntuple.SJ_2X4, **cfg}
+    states, steps, times = {}, {}, {b: [] for b in backends}
+    for backend in backends:
+        c = nt.NTupleTrainConfig(batch_size=NT_B, steps_per_update=NT_T, update_mode=mode, table_backend=backend, **cfg)
+        steps[backend] = nt.make_ntuple_step(c, dev)
+        state = nt.train_ntuple(c, 1, seed=SEED, device=dev)[0]
+        net = nt.get_network(c.network_config(dev))
+        states[backend] = dataclasses.replace(state, params=net.refresh_cache(state.params))
+    a, b = backends
     for _ in range(rounds):
-        for backend in ("mxu", "torch", "torch", "mxu"):
+        for backend in (a, b, b, a):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             states[backend], metrics = steps[backend](states[backend])
@@ -398,7 +418,7 @@ def ntuple_trainer_phase(dev):
         if mode == "step":
             trained = state
         times = paired_updates(dev, mode)
-        log("ntuple/train-paired", mode=mode, order="mxu,torch,torch,mxu x2", **{
+        log("ntuple/train-paired", mode=mode, tuples="SJ_2X4", order="mxu,torch,torch,mxu x2", **{
             f"{b}_env_steps_per_s": [round(NT_B * NT_T / t, 1) for t in ts] for b, ts in times.items()
         }, mxu_over_torch=round(float(np.median(times["torch"]) / np.median(times["mxu"])), 4))
     cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4)
@@ -474,11 +494,218 @@ def ntuple_depth1_phase(trained, dev):
     return launched
 
 
+def logical_tables(params: dict) -> dict:
+    """The float tables of a ``"cached"`` state in logical order (new tensors)."""
+    from rein48_tpu_torch.ops import hbm_tables
+
+    out = {}
+    for k, v in params.items():
+        if v.dtype == torch.float32:
+            rows = torch.arange(v.numel(), dtype=torch.int32, device=v.device)
+            out[k] = v[hbm_tables.physical_index(params[k.split("_")[0] + "_rm"], rows)]
+    return out
+
+
+def cached_trainer_inputs(dev):
+    """A YEH_4X6 ``"cached"`` state two delayed updates in, just refreshed,
+    and what its steps feed the hot-prefix kernels.
+
+    Returns ``(state, net, idx, window)``: ``idx`` the lookup indices of
+    table 0 that ``value(afterstates)`` gathers (32,768), ``window`` the
+    backups of four steps with the tables frozen, as ``(boards, errs)``.
+    """
+    from rein48_tpu_torch.train import ntuple as nt
+
+    cfg = nt.NTupleTrainConfig(batch_size=NT_B, steps_per_update=NT_T, update_mode="delayed", table_backend="cached")
+    state, net = nt.train_ntuple(cfg, 2, seed=SEED + 7, log_every=2, device=dev)[0], nt.get_network(cfg.network_config(dev))
+    state = dataclasses.replace(state, params=net.refresh_cache(state.params))
+    with torch.no_grad():
+        idx = net.indices(nt._all_afterstates(state.env.boards)[0])[0]
+        env, prev_after, prev_valid, window = state.env, state.prev_after, state.prev_valid, []
+        for _ in range(4):
+            env, prev_after, done, boards, errs, _ = nt._policy_and_backups(net, state.params, env, prev_after, prev_valid)
+            prev_valid = 1.0 - done
+            window.append((boards, errs))
+    boards = torch.cat([b for b, _ in window])
+    return state, net, idx, (boards, torch.cat([e for _, e in window]))
+
+
+def hbm_kernel_phase(state, net, idx, window):
+    """The hot-prefix kernels against their plain versions at the trainer's
+    shapes, their times, the plain versions', and the bound by bytes."""
+    from rein48_tpu_torch.ops import hbm_tables
+
+    p = state.params
+    table, rm, hot, k = p["t0"], p["t0_rm"], p["t0_hot"], net.prefix_rows[0]
+    cap = net.config.cold_capacity_rows * hbm_tables.ROW
+
+    got = hbm_tables.cached_gather(table, rm, hot, idx, prefix_rows=k)
+    equal = bool(torch.equal(got, hbm_tables.cached_gather_reference(table, rm, idx)))
+    n = idx.numel()
+    rows, touched = int(torch.unique(idx >> 7).numel()), int(torch.unique(idx).numel())
+    hot_share = float(torch.isin(idx >> 7, hot).float().mean())
+    kt = timed(lambda: hbm_tables.cached_gather(table, rm, hot, idx, prefix_rows=k))
+    # The library call is table[physical_index(rm, idx)], which is also the plain version.
+    pt = timed(lambda: hbm_tables.cached_gather_reference(table, rm, idx))
+    # Each index read and each value written once, each touched row-map and table entry read once.
+    bound_ms = 1e3 * (8 * n + 4 * rows + 4 * touched) / HBM_BYTES_PER_S
+    log("hbm/gather", call="value(afterstates)", n=n, table=table.numel(), prefix_rows=k, hot_share=round(hot_share, 4),
+        touched_rows=rows, touched=touched, equal=equal, ms=kt["ms"], call_ms=round(kt["call_ms"], 5), plain_ms=pt["ms"],
+        plain_call_ms=round(pt["call_ms"], 5), bound_ms=round(bound_ms, 6), kernels=json.dumps(kt["kernels"]),
+        plain_kernels=json.dumps(pt["kernels"]))
+    if not equal:
+        raise AssertionError("cached_gather kernel differs from table[physical_index(rm, idx)]")
+    gather = dict(n=n, ms=kt["ms"], plain_ms=pt["ms"], library_ms=pt["ms"], bound_ms=bound_ms)
+
+    boards, errs = window
+    lookups = net.num_lookups // len(net.table_sizes)
+    sidx = net.indices(boards)[0].reshape(-1)
+    d = errs[:, None].expand(-1, lookups).reshape(-1).contiguous()
+    got = hbm_tables.cached_scatter_blocks(hot, sidx, d, prefix_rows=k)
+    want = hbm_tables.cached_scatter_stats_reference(hot, sidx, d)
+    # want[1] sums |err| per entry: the magnitudes of each sum's terms.
+    ok, err, ratio = close_tables(got[:2], want[:2], [want[1], want[1]])
+    exact = {name: bool(torch.equal(g, w)) for name, g, w in zip(("hits", "cold_idx", "cold_err", "counts"), got[2:], want[2:])}
+    counts = got[5]
+    ns = sidx.numel()
+    n_blocks = counts.numel()
+    kt = timed(lambda: hbm_tables.cached_scatter_stats(hot, sidx, d, prefix_rows=k))
+    pt = timed(lambda: hbm_tables.cached_scatter_stats_reference(hot, sidx, d), reps=10)
+    # Each index and error read once; the three [K, 128] sums, the residue and the counts written once.
+    bound_ms = 1e3 * (8 * ns + 3 * 4 * k * hbm_tables.ROW + 8 * n_blocks * cap + 4 * n_blocks) / HBM_BYTES_PER_S
+    log("hbm/scatter", call="one delayed window", n=ns, prefix_rows=k, capacity=cap,
+        hot_share=round(1.0 - float(counts.sum()) / ns, 4), cold_per_block=counts.tolist(),
+        overflow=bool(counts.max() > cap), hottest_entry_hits=int(got[2].max()), within_tol=ok, exact=json.dumps(exact),
+        max_abs_err=f"{err:.3g}", err_over_tol=f"{ratio:.3g}", ms=kt["ms"], call_ms=round(kt["call_ms"], 5),
+        plain_ms=pt["ms"], plain_call_ms=round(pt["call_ms"], 5), bound_ms=round(bound_ms, 6),
+        kernels=json.dumps(kt["kernels"]), plain_kernels=json.dumps(pt["kernels"]))
+    if not (ok and all(exact.values())):
+        raise AssertionError("cached_scatter kernel disagrees with its plain version")
+    return gather, dict(n=ns, ms=kt["ms"], plain_ms=pt["ms"], bound_ms=bound_ms, err=err, ratio=ratio)
+
+
+def cached_network_phase(state, net, window):
+    """``"cached"`` against ``"torch"`` on the card, the torch backend reading
+    the same tables unpermuted: value bit-equal, and the delayed TC update
+    within the scaled tolerance on both branches."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.ops import hbm_tables
+    from rein48_tpu_torch.train import ntuple as nt
+
+    plain = nt.get_network(dataclasses.replace(net.config, backend="torch"))
+    boards, errs = window
+    flat = logical_tables(state.params)
+    with torch.no_grad():
+        equal = bool(torch.equal(net.value(state.params, boards), plain.value(flat, boards)))
+        log("hbm/cached-vs-torch", fn="value", boards=boards.shape[0], equal=equal)
+        ok, worst = equal, 0.0
+        b = plain.td_apply_delayed({k: v.clone() for k, v in flat.items()}, boards, errs, 1.0)
+        scale = plain.td_apply_delayed({k: v.abs() for k, v in flat.items()}, boards, errs.abs(), 1.0)
+        # The trainer's capacity, and one that holds a whole block: never overflows.
+        for rows in (net.config.cold_capacity_rows, hbm_tables.G_BLK):
+            cached = nt.get_network(dataclasses.replace(net.config, cold_capacity_rows=rows))
+            before = dict(ntuple.cached_windows)
+            a = cached.td_apply_delayed({k: v.clone() for k, v in state.params.items()}, boards, errs, 1.0)
+            branches = {k: ntuple.cached_windows[k] - before[k] for k in before}
+            got = logical_tables(a)
+            ok_k, err_k, ratio = close_tables([got[k] for k in b], [b[k] for k in b], [scale[k] for k in b])
+            log("hbm/cached-vs-torch", fn="td_apply_delayed(tc=True)", cold_capacity_rows=rows, branches=json.dumps(branches),
+                within_tol=ok_k, max_abs_err=f"{err_k:.3g}", err_over_tol=f"{ratio:.3g}")
+            ok &= ok_k
+            worst = max(worst, err_k)
+            del a, got
+    if not ok:
+        raise AssertionError("the cached backend disagrees with the torch backend on the card")
+    return worst
+
+
+def cached_trainer_phase(dev):
+    """``train_ntuple`` through its entry point with ``table_backend="cached"``
+    at YEH_4X6 in both update modes, launches checked per update; again at
+    8192 prefix rows if the defaults never took the fast branch; then
+    ``"cached"`` against ``"torch"`` paired update by update."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.ops import hbm_tables, tables
+    from rein48_tpu_torch.train import ntuple as nt
+
+    launched = {k: 0 for k in hbm_tables.launches}
+    fast, trained = 0, None
+    for prefix_rows in HP_PREFIX_ROWS:
+        for mode, updates in HP_UPDATES.items():
+            cfg = nt.NTupleTrainConfig(
+                batch_size=NT_B, steps_per_update=NT_T, update_mode=mode, table_backend="cached",
+                cache_prefix_rows=prefix_rows, cache_refresh_every=HP_REFRESH_EVERY,
+            )
+            clock = Clock()
+            zero_table_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            state, history = nt.train_ntuple(cfg, updates, seed=SEED, log_every=1, logger=clock, device=dev)
+            counts, windows = dict(hbm_tables.launches), dict(ntuple.cached_windows)
+            # Per env step: 4 tables x (afterstates + prev_after) gathers; per
+            # window ("delayed"), one scatter per table; "step" scatters nothing.
+            scatters = 4 * (NT_T // cfg.delay_window) * updates if mode == "delayed" else 0
+            want = {"cached_gather": 8 * NT_T * updates, "cached_scatter": scatters}
+            if counts != want or any(tables.launches.values()) or sum(windows.values()) != scatters:
+                raise AssertionError(
+                    f"train_ntuple(cached, {mode}) launched {counts} and {tables.launches}, windows {windows}; expected {want}"
+                )
+            for k in launched:
+                launched[k] += counts[k]
+            fast += windows["fast"]
+            rates = [NT_B * NT_T / dt for dt in clock.per_update_s()]
+            last = history[-1]
+            log(
+                "hbm/train", mode=mode, table_backend="cached", tuples="YEH_4X6", prefix_rows=prefix_rows, B=NT_B, T=NT_T,
+                updates=updates, refreshed_before_update=1,
+                refreshed_after_updates=list(range(HP_REFRESH_EVERY, updates + 1, HP_REFRESH_EVERY)),
+                launches=json.dumps(counts), windows=json.dumps(windows),
+                launches_per_update=json.dumps({k: v // updates for k, v in counts.items()}),
+                env_steps_per_s=[round(r, 1) for r in rates], peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3),
+                td_abs_err=round(last["td_abs_err"], 4), avg_episode_score=round(last["avg_episode_score"], 1),
+                best_tile=last["best_tile"],
+            )
+            if not all(np.isfinite(v) for v in last.values()):
+                raise AssertionError(f"train_ntuple(cached, {mode}) metrics not finite: {last}")
+            if (prefix_rows, mode) == (HP_PREFIX_ROWS[0], "delayed"):
+                trained = state
+            del state
+        if fast:
+            break
+    if not fast:
+        raise AssertionError("the cached trainer never took the fast branch")
+    times = paired_updates(dev, "delayed", ("cached", "torch"), tuples=ntuple.YEH_4X6)
+    log("hbm/train-paired", mode="delayed", tuples="YEH_4X6", order="cached,torch,torch,cached x2", **{
+        f"{b}_env_steps_per_s": [round(NT_B * NT_T / t, 1) for t in ts] for b, ts in times.items()
+    }, cached_over_torch=round(float(np.median(times["torch"]) / np.median(times["cached"])), 4))
+    return trained, launched
+
+
+def cached_eval_phase(trained, dev):
+    """Depth-0 ``evaluate_ntuple`` of the cached-trained tables against the
+    same tables unpermuted, read on ``"torch"``: equal stats."""
+    from rein48_tpu_torch.ops import hbm_tables, tables
+    from rein48_tpu_torch.train import ntuple as nt
+
+    cfg = nt.NTupleTrainConfig(table_backend="cached")
+    kw = dict(depth=0, num_envs=HP_EVAL_ENVS, num_steps=HP_EVAL_STEPS, seed=SEED, protocol="first", device=dev)
+    zero_table_counts()
+    t0 = time.perf_counter()
+    stats = nt.evaluate_ntuple(trained.params, cfg, **kw)
+    wall = time.perf_counter() - t0
+    launched = dict(hbm_tables.launches)
+    plain = nt.evaluate_ntuple(logical_tables(trained.params), dataclasses.replace(cfg, table_backend="torch"), **kw)
+    log("hbm/eval-depth0", envs=HP_EVAL_ENVS, steps=HP_EVAL_STEPS, wall_s=round(wall, 3), launches=json.dumps(launched),
+        equal_to_torch=stats == plain, stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+    if stats != plain or launched["cached_gather"] <= 0 or any(tables.launches.values()):
+        raise AssertionError(f"depth-0 evaluation of cached tables: {stats} launches {launched}, torch reads {plain}")
+    return launched
+
+
 def ntuple_cli_phase(dev):
     """``train --algo ntuple`` at the CLI's defaults: the YEH_4X6 flagship
     (4 tables of 16.7M entries with TC accumulators) on the plain path."""
     from rein48_tpu_torch import cli
-    from rein48_tpu_torch.ops import tables
+    from rein48_tpu_torch.ops import hbm_tables, tables
 
     argv = ["train", "--algo", "ntuple", "--updates", "3", "--batch-size", "1024", "--unroll", "64", "--log-every", "1"]
     out, err = io.StringIO(), io.StringIO()
@@ -489,10 +716,11 @@ def ntuple_cli_phase(dev):
     final = ast.literal_eval(err.getvalue().split("final: ", 1)[1].strip())
     walls = [float(ln.split("wall_time=")[1].split()[0]) for ln in out.getvalue().splitlines() if "wall_time=" in ln]
     per_update = [b - a for a, b in zip(walls, walls[1:])]
-    log("ntuple/cli", argv=" ".join(argv), rc=rc, table_launches=json.dumps(tables.launches),
+    kernel_launches = {**tables.launches, **hbm_tables.launches}
+    log("ntuple/cli", argv=" ".join(argv), rc=rc, table_launches=json.dumps(kernel_launches),
         env_steps_per_s_after_first=[round(1024 * 64 / dt, 1) for dt in per_update if dt > 0],
         final=json.dumps(final), peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3))
-    if rc != 0 or final["update"] != 3 or not np.isfinite(final["td_abs_err"]) or any(tables.launches.values()):
+    if rc != 0 or final["update"] != 3 or not np.isfinite(final["td_abs_err"]) or any(kernel_launches.values()):
         raise AssertionError(f"train --algo ntuple failed: {final}")
 
 
@@ -696,8 +924,20 @@ def main() -> int:
     for k, v in ntuple_depth1_phase(trained, dev).items():
         table_launches[k] += v
     del trained
+    # 12-15. The "cached" backend at YEH_4X6: its kernels against their plain
+    # versions, the backend against "torch" on the card, then its main paths
+    # with the counts at 0: the trainer in both update modes and depth-0
+    # evaluation of what it trained.
+    state, net, idx, window = cached_trainer_inputs(dev)
+    hp_gather, hp_scatter = hbm_kernel_phase(state, net, idx, window)
+    hp_net_err = cached_network_phase(state, net, window)
+    del state, window
+    trained, hp_launches = cached_trainer_phase(dev)
+    for k, v in cached_eval_phase(trained, dev).items():
+        hp_launches[k] += v
+    del trained
     ntuple_cli_phase(dev)
-    for k, v in table_launches.items():
+    for k, v in {**table_launches, **hp_launches}.items():
         if v <= 0:
             raise AssertionError(f"the n-tuple main paths launched no {k} kernel")
     g, sc = gather["value(afterstates)"], scatter[("stats", NT_B * 2 * 8)]
@@ -733,6 +973,38 @@ def main() -> int:
             "bound_ms": round(sc["bound_ms"], 6),
             "bound_by": "bytes",
             "library_ms": sc["library_ms"],
+        },
+        {
+            "name": "cached_gather",
+            "route": "cuda",
+            "source": "rein48_tpu_torch/csrc/hbm_tables.cu",
+            "replaces": "rein48_tpu/ops/hbm_tables.py:222",
+            "launches": hp_launches["cached_gather"],
+            "equal": True,
+            "max_abs_err": 0.0,
+            "n": hp_gather["n"],
+            "ms": hp_gather["ms"],
+            "plain_ms": hp_gather["plain_ms"],
+            "bound_ms": round(hp_gather["bound_ms"], 6),
+            "bound_by": "bytes",
+            "library_ms": hp_gather["library_ms"],
+        },
+        {
+            "name": "cached_scatter",
+            "route": "cuda",
+            "source": "rein48_tpu_torch/csrc/hbm_tables.cu",
+            "replaces": "rein48_tpu/ops/hbm_tables.py:421",
+            "launches": hp_launches["cached_scatter"],
+            "equal": True,
+            "max_abs_err": max(hp_scatter["err"], hp_net_err),
+            "tolerance": {"rtol": TABLE_RTOL, "atol": TABLE_ATOL},
+            "err_over_tol": hp_scatter["ratio"],
+            "n": hp_scatter["n"],
+            "ms": hp_scatter["ms"],
+            "plain_ms": hp_scatter["plain_ms"],
+            "bound_ms": round(hp_scatter["bound_ms"], 6),
+            "bound_by": "bytes",
+            "library_ms": None,
         },
     ]
     log("kernels", total_seconds=f"{time.perf_counter() - t_start:.1f}")

@@ -8,18 +8,26 @@ by their exponents in base 16 (Szubert & Jaskowski, CIG 2014; temporal
 coherence and delayed updates after Jaskowski, TCIAIG 2017). Learning is
 a scatter-add into the same tables.
 
-Tables are a plain dict of float32 tensors with the JAX key names
-(``{"t0": f32[16^k0], "t0_E": ..., "t0_A": ..., ...}``). Two backends:
+Tables are a plain dict of tensors with the JAX key names
+(``{"t0": f32[16^k0], "t0_E": ..., "t0_A": ..., ...}``). Three backends:
 
 * ``"torch"``: plain PyTorch index ops, the counterpart of the JAX
   package's ``"xla"``; any table size;
 * ``"mxu"``: the table kernels of ``ops/tables.py`` (CUDA on the card),
-  tables of at most 65,536 entries; the same math.
+  tables of at most 65,536 entries; the same math;
+* ``"cached"``: hot-prefix permuted tables (``ops/hbm_tables.py``, CUDA on
+  the card), table sizes divisible by 16,384. Tables are stored physically
+  permuted by 128-entry rows, with ``t{i}_rm`` (int32 logical -> physical
+  row map) and ``t{i}_hot`` (int32 logical rows of the hot prefix) beside
+  them; :meth:`NTupleNetwork.refresh_cache` derives the permutation anew.
+  Values go through the ``cached_gather`` kernel, delayed windows through
+  ``cached_scatter_stats``, and every other table op runs the plain path
+  on physical ids: the same per-entry math on a relabelled domain.
 
-The JAX package's ``"cached"`` backend (``ops/hbm_tables.py``) is not yet
-ported. Unlike the JAX functions, which return new arrays, the update
-functions here add into the tables in place (they are the trainer's state
-and the flagship's are 67 MB each) and return the same dict.
+Unlike the JAX functions, which return new arrays, the update functions
+here add into the tables in place (they are the trainer's state and the
+flagship's are 67 MB each) and return the same dict; ``refresh_cache``
+returns new tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 
 from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core
+from rein48_tpu_torch.ops import hbm_tables
 from rein48_tpu_torch.ops import tables as table_ops
 
 BASE = core.MAX_EXPONENT + 1  # exponents 0..15 -> base-16 digits
@@ -58,7 +67,12 @@ TINY_2X3 = (
     (0, 4, 8),
 )
 
-BACKENDS = ("torch", "mxu")
+BACKENDS = ("torch", "mxu", "cached")
+
+# Delayed windows of the "cached" backend per branch, since the counts were
+# last set to 0: "fast" took the kernel's hot statistics and cold residue,
+# "fallback" the dense path after a cold residue overflowed.
+cached_windows = {"fast": 0, "fallback": 0}
 
 
 def _symmetry_maps() -> np.ndarray:
@@ -85,15 +99,24 @@ class NTupleConfig:
         symmetric: expand each tuple over the 8 board symmetries with
             shared weights (rotation/reflection invariance for free).
         optimistic_init: initial table value (0 is the classic default).
-        backend: ``"torch"`` (plain index ops, any size) or ``"mxu"`` (the
-            ``ops/tables.py`` kernels, tables <= 65,536 entries).
-            ``"cached"`` is not yet ported.
+        backend: ``"torch"`` (plain index ops, any size), ``"mxu"`` (the
+            ``ops/tables.py`` kernels, tables <= 65,536 entries) or
+            ``"cached"`` (hot-prefix permuted tables, the
+            ``ops/hbm_tables.py`` kernels, sizes divisible by 16,384).
+        prefix_rows: ``"cached"`` only: hot-prefix rows of 128 entries per
+            table, clamped to [128, table rows] and rounded down to a
+            multiple of 128.
+        cold_capacity_rows: ``"cached"`` only: cold slots per 16,384-element
+            block of a delayed window, in rows of 128; a window with more
+            cold elements in a block takes the dense path.
     """
 
     tuples: Tuple[Tuple[int, ...], ...] = YEH_4X6
     symmetric: bool = True
     optimistic_init: float = 0.0
     backend: str = "torch"
+    prefix_rows: int = 8192
+    cold_capacity_rows: int = 16
 
     @property
     def num_lookups(self) -> int:
@@ -109,8 +132,6 @@ class NTupleNetwork:
 
     def __init__(self, config: NTupleConfig = NTupleConfig()):
         self.config = config
-        if config.backend == "cached":
-            raise NotImplementedError("backend='cached' (ops/hbm_tables.py) is not yet ported to rein48_tpu_torch")
         if config.backend not in BACKENDS:
             raise ValueError(
                 f"unknown table backend '{config.backend}' (the port's backends are {BACKENDS}; "
@@ -128,7 +149,19 @@ class NTupleNetwork:
                     f"backend='mxu' supports tables <= {table_ops.MXU_TABLE_MAX} "
                     f"entries; got {bad} (use backend='torch' for big tuples)"
                 )
+        if config.backend == "cached":
+            bad = [n for n in self.table_sizes if n % hbm_tables.BLOCK]
+            if bad:
+                raise ValueError(
+                    "backend='cached' needs table sizes divisible by "
+                    f"16384; got {bad} (use 'torch' for small tuples)"
+                )
+            # Whole groups of 128 rows, in [128, table rows].
+            self.prefix_rows = tuple(
+                max(128, min(config.prefix_rows, n // hbm_tables.ROW) // 128 * 128) for n in self.table_sizes
+            )
         self._mxu = config.backend == "mxu"
+        self._cached = config.backend == "cached"
         self._consts: Dict[torch.device, list] = {}
 
     def _lookup_consts(self, device: torch.device):
@@ -142,12 +175,22 @@ class NTupleNetwork:
         return consts
 
     def init(self, device=None) -> Dict[str, torch.Tensor]:
-        """Constant tables ``{"t0": f32[16^k0], ...}`` on ``device``."""
+        """Constant tables ``{"t0": f32[16^k0], ...}`` on ``device``.
+
+        ``"cached"`` adds the identity permutation: ``t{i}_rm`` maps every
+        row to itself and ``t{i}_hot`` names rows ``0..K-1``. A constant
+        table reads the same under any permutation.
+        """
         device = resolve_device(device)
-        return {
+        params = {
             f"t{i}": torch.full((n,), self.config.optimistic_init, dtype=torch.float32, device=device)
             for i, n in enumerate(self.table_sizes)
         }
+        if self._cached:
+            for i, n in enumerate(self.table_sizes):
+                params[f"t{i}_rm"] = hbm_tables.identity_rowmap(n, device)
+                params[f"t{i}_hot"] = torch.arange(self.prefix_rows[i], dtype=torch.int32, device=device)
+        return params
 
     def indices(self, boards: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """Per-table lookup indices for ``uint8[..., 4, 4]`` boards.
@@ -166,7 +209,18 @@ class NTupleNetwork:
         table = params[f"t{i}"]
         if self._mxu:
             return table_ops.mxu_gather(table, idx)
+        if self._cached:
+            return hbm_tables.cached_gather(
+                table, params[f"t{i}_rm"], params[f"t{i}_hot"], idx,
+                prefix_rows=self.prefix_rows[i], cold_capacity_rows=self.config.cold_capacity_rows,
+            )
         return table[idx]
+
+    def _translate(self, params, i: int, ids: torch.Tensor) -> torch.Tensor:
+        """Logical -> physical ids for the plain table ops of ``"cached"``."""
+        if not self._cached:
+            return ids
+        return hbm_tables.physical_index(params[f"t{i}_rm"], ids)
 
     def _stats(self, size: int, ids: torch.Tensor, d: torch.Tensor):
         """Dense ``(err_sum, abs_sum, hits)`` over one table.
@@ -225,7 +279,7 @@ class NTupleNetwork:
             raise ValueError(f"unknown collision mode '{collision}'")
         delta = (alpha / self.num_lookups) * err
         for i, idx in enumerate(self.indices(boards)):
-            ids = idx.reshape(-1)
+            ids = self._translate(params, i, idx.reshape(-1))
             d = self._flat_deltas(delta, idx)
             table = params[f"t{i}"]
             if self._mxu:
@@ -275,7 +329,7 @@ class NTupleNetwork:
         """
         scale = alpha / self.num_lookups
         for i, idx in enumerate(self.indices(boards)):
-            ids = idx.reshape(-1)
+            ids = self._translate(params, i, idx.reshape(-1))
             d = self._flat_deltas(err, idx)
             table, e_acc, a_acc = params[f"t{i}"], params[f"t{i}_E"], params[f"t{i}_A"]
             if self._mxu:
@@ -315,9 +369,13 @@ class NTupleNetwork:
         error ``m`` moves by the sequential-equivalent
         ``(1 - (1 - alpha*beta)**h) * m / num_lookups``; with ``tc`` the
         accumulators receive the full per-hit sums. See the JAX docstring.
+        ``"cached"`` takes :meth:`_delayed_apply_cached`.
         """
         for i, idx in enumerate(self.indices(boards)):
             d = self._flat_deltas(err, idx)
+            if self._cached:
+                self._delayed_apply_cached(params, i, idx.reshape(-1), d, alpha, tc)
+                continue
             table = params[f"t{i}"]
             err_sum, abs_sum, hits = self._stats(table.shape[0], idx.reshape(-1), d)
             mean_d = err_sum / torch.clamp(hits, min=1.0)
@@ -332,6 +390,98 @@ class NTupleNetwork:
                 params[f"t{i}_E"].add_(err_sum)
                 params[f"t{i}_A"].add_(abs_sum)
         return params
+
+    def _delayed_apply_cached(self, params, i: int, ids: torch.Tensor, d: torch.Tensor, alpha: float, tc: bool):
+        """The windowed update of table ``i`` for ``"cached"``, in place.
+
+        ``ids`` are LOGICAL. The ``cached_scatter_stats`` kernel sums the
+        hot contributions into ``[K, 128]`` prefix statistics, which update
+        the prefix elementwise, and hands back the cold contributions
+        compacted, which update their few entries by the same formula
+        through sorted runs. Entries neither hot nor touched have 0 hits,
+        which the dense formula maps to no move, so this is the dense
+        result up to the reassociation of the sums. When a block's cold
+        elements overflowed its capacity, the window takes the dense path
+        on physical ids instead: JAX picks the branch on the device
+        (``lax.cond``), the port reads the flag on the host, one sync per
+        table per window. ``cached_windows`` counts the branches.
+        """
+        K = self.prefix_rows[i]
+        w = params[f"t{i}"]
+        e_acc, a_acc = (params[f"t{i}_E"], params[f"t{i}_A"]) if tc else (None, None)
+        scale = 1.0 / self.num_lookups
+
+        def step_at(at):
+            """The per-hit step ``clamp(alpha * beta, 0, 1)`` of the entries ``at``."""
+            if not tc:
+                return min(max(alpha, 0.0), 1.0)
+            return torch.clamp(alpha * self._tc_rate(e_acc[at], a_acc[at]), 0.0, 1.0)
+
+        err_sum, abs_sum, hits, cold_i, cold_e, overflow = hbm_tables.cached_scatter_stats(
+            params[f"t{i}_hot"], ids, d, prefix_rows=K, cold_capacity_rows=self.config.cold_capacity_rows
+        )
+        if bool(overflow):
+            cached_windows["fallback"] += 1
+            f_es, f_ab, f_h = self._stats(w.shape[0], self._translate(params, i, ids), d)
+            gain = 1.0 - torch.pow(1.0 - step_at(slice(None)), f_h)
+            w.add_(gain * scale * (f_es / torch.clamp(f_h, min=1.0)))
+            if tc:
+                e_acc.add_(f_es)
+                a_acc.add_(f_ab)
+            return
+        cached_windows["fast"] += 1
+        pe = K * hbm_tables.ROW
+        es, ab, h = err_sum.reshape(-1), abs_sum.reshape(-1), hits.reshape(-1)
+        gain = 1.0 - torch.pow(1.0 - step_at(slice(0, pe)), h)
+        w[:pe].add_(gain * scale * (es / torch.clamp(h, min=1.0)))
+        if tc:
+            e_acc[:pe].add_(es)
+            a_acc[:pe].add_(ab)
+
+        # The cold residue, in runs of equal physical ids; each run's update
+        # lands on its first element. The others, and the (0, 0.0) slots of
+        # unused capacity, have 0 hits and add exactly 0.
+        sp, se, first, seg = self._runs(self._translate(params, i, cold_i), cold_e)
+        m = sp.shape[0]
+
+        def run_sum(v):
+            return torch.zeros(m, dtype=torch.float32, device=se.device).index_add_(0, seg, v)[seg] * first
+
+        c_h = run_sum((se != 0.0).to(torch.float32))
+        c_es, c_ab = run_sum(se), run_sum(se.abs())
+        # The accumulators are read after the prefix update, as in JAX.
+        c_gain = 1.0 - torch.pow(1.0 - step_at(sp), c_h)
+        w.index_add_(0, sp, c_gain * scale * (c_es / torch.clamp(c_h, min=1.0)))
+        if tc:
+            e_acc.index_add_(0, sp, c_es)
+            a_acc.index_add_(0, sp, c_ab)
+
+    def refresh_cache(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Derive each table's hot-prefix permutation anew (``"cached"``).
+
+        Heat is the TC ``|err|`` accumulator ``t{i}_A`` when present, else
+        ``|t{i}|``. Rows are reordered so that the ``K`` hottest form the
+        prefix; every per-entry array moves with them, so training is
+        unchanged (the domain is relabelled). Returns a new dict holding
+        NEW tensors for ``t{i}``, ``t{i}_E``, ``t{i}_A``, ``t{i}_rm`` and
+        ``t{i}_hot`` (a row permutation cannot run in place); callers swap
+        it in for the old one. Other backends return ``params`` as it is.
+        """
+        if not self._cached:
+            return params
+        new = dict(params)
+        for i in range(len(self.table_sizes)):
+            heat = params.get(f"t{i}_A")
+            if heat is None:
+                heat = params[f"t{i}"].abs()
+            perm, rm, hot = hbm_tables.hot_permutation(heat, params[f"t{i}_rm"], self.prefix_rows[i])
+            for suffix in ("", "_E", "_A"):
+                key = f"t{i}{suffix}"
+                if key in params:
+                    new[key] = hbm_tables.apply_row_permutation(params[key], perm)
+            new[f"t{i}_rm"] = rm
+            new[f"t{i}_hot"] = hot
+        return new
 
     def make_leaf(self, params, max_batch: int = 4096):
         """Expectimax leaf evaluator (``control/search.py``).

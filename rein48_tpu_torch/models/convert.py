@@ -9,7 +9,13 @@ The inputs are the JAX parameters with their leaves as numpy arrays
   dense kernels from ``[in, out]`` to ``[out, in]``. The port's heads
   flatten channels last in the same (h, w, c) order as Flax, so no dense
   weight is permuted.
-* N-tuple tables: the same keys and flat float32 tables.
+* N-tuple tables: the same keys and flat float32 tables. The ``"cached"``
+  backend's permutation state comes across as int32 beside them:
+  ``t{i}_rm``, one physical row per logical row of 128 entries (a
+  permutation of ``16**k / 128`` rows), and ``t{i}_hot``, the distinct
+  logical rows of the hot prefix, ``rm[hot[s]] == s``. The tables are
+  physical storage, so the port then reads and updates them as JAX does,
+  layout included.
 """
 
 from __future__ import annotations
@@ -64,27 +70,48 @@ def resnet_from_flax(params, dtype=torch.bfloat16) -> ResNetPolicy:
     return model
 
 
-_NTUPLE_KEY = re.compile(r"t(\d+)(_E|_A)?")
+_NTUPLE_KEY = re.compile(r"t(\d+)(_E|_A|_rm|_hot)?")
+
+
+def _check_rows(key: str, arr: np.ndarray, rm: np.ndarray, table: np.ndarray) -> None:
+    """Raise unless ``t{i}_rm``/``t{i}_hot`` are a valid permutation state."""
+    rows = table.shape[0] // 128 if table.ndim == 1 and table.shape[0] % 128 == 0 else -1
+    if arr.dtype != np.int32 or arr.ndim != 1:
+        raise ValueError(f"'{key}' must be a flat int32 array, got {arr.dtype} of shape {arr.shape}")
+    if key.endswith("_rm"):
+        if arr.shape[0] != rows or not np.array_equal(np.sort(arr), np.arange(rows)):
+            raise ValueError(f"'{key}' must be a permutation of the {rows} rows of 128 entries of its table")
+        return
+    if not 0 < arr.shape[0] <= rows or np.unique(arr).shape[0] != arr.shape[0] or arr.min() < 0 or arr.max() >= rows:
+        raise ValueError(f"'{key}' must name at most {rows} distinct rows of its table")
+    if rm.shape != (rows,) or not np.array_equal(rm[arr], np.arange(arr.shape[0])):
+        raise ValueError(f"'{key}' must name the rows that its row map puts first (rm[hot[s]] == s)")
 
 
 def ntuple_params_from_jax(params: Mapping[str, np.ndarray], device) -> dict[str, torch.Tensor]:
     """The port's n-tuple tables from the JAX package's, on ``device``.
 
-    Keys stay as they are (``t{i}``, and ``t{i}_E``/``t{i}_A`` with
-    temporal coherence). Each table must be flat with ``16**k`` entries and
-    each accumulator as long as its table. The ``"cached"`` backend's
-    row maps (``t{i}_rm``, ``t{i}_hot``) are not yet ported and raise.
+    Keys stay as they are: ``t{i}``, ``t{i}_E``/``t{i}_A`` with temporal
+    coherence, and ``t{i}_rm``/``t{i}_hot`` of the ``"cached"`` backend.
+    Each table must be flat with ``16**k`` entries and each accumulator as
+    long as its table; they arrive as float32. The row map and hot rows
+    stay int32 and must describe one permutation (module note); anything
+    else raises.
     """
     out = {}
     for key, value in params.items():
         m = _NTUPLE_KEY.fullmatch(key)
         if m is None:
-            raise ValueError(f"unexpected n-tuple parameter '{key}' (the 'cached' backend is not yet ported)")
+            raise ValueError(f"unexpected n-tuple parameter '{key}'")
         arr = np.asarray(value)
+        table = np.asarray(params.get(f"t{m.group(1)}", ()))
+        if m.group(2) in ("_rm", "_hot"):
+            _check_rows(key, arr, np.asarray(params.get(f"t{m.group(1)}_rm", ())), table)
+            out[key] = torch.from_numpy(np.array(arr, order="C")).to(device)
+            continue
         n = arr.shape[0] if arr.ndim == 1 else -1
         if n < 16 or 16 ** round(np.log(n) / np.log(16)) != n:
             raise ValueError(f"'{key}' must be a flat table of 16**k entries, got shape {arr.shape}")
-        table = np.asarray(params.get(f"t{m.group(1)}", ()))
         if arr.shape != table.shape:
             raise ValueError(f"'{key}' has shape {arr.shape}, its table 't{m.group(1)}' {table.shape}")
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C")).to(device)

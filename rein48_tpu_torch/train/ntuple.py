@@ -11,8 +11,9 @@ optimizer and no gradients: learning is a scatter-add into the tables.
 The JAX ``lax.scan`` over the steps of an update is a Python loop here,
 and the tables are updated in place. Acting draws its spawns from the
 engine's Philox streams (``engine/vector.py``). On a card the ``"mxu"``
-backend runs the table kernels of ``ops/tables.py``. ``mesh`` and
-``checkpointer`` are not yet ported.
+backend runs the table kernels of ``ops/tables.py`` and the ``"cached"``
+backend those of ``ops/hbm_tables.py``. ``mesh`` and ``checkpointer`` are
+not yet ported.
 """
 
 from __future__ import annotations
@@ -39,11 +40,13 @@ class NTupleTrainConfig:
     ``alpha`` is the total learning rate per TD backup, split over the
     network's lookups. With ``update_mode="delayed"`` the per-window step
     saturates at ``alpha * beta = 1``, so ``alpha > 1`` needs ``tc=True``.
-    ``table_backend`` is ``"auto"``, ``"torch"`` or ``"mxu"``; ``"auto"``
-    takes ``"mxu"`` when every table qualifies and the device is CUDA.
-    ``cache_prefix_rows`` and ``cache_refresh_every`` belong to the
-    ``"cached"`` backend, which is not yet ported. See the JAX class for
-    the measurements behind each default.
+    ``table_backend`` is ``"auto"``, ``"torch"``, ``"mxu"`` or ``"cached"``;
+    ``"auto"`` takes ``"mxu"`` when every table qualifies and the device is
+    CUDA, else ``"torch"``, and never ``"cached"``, as in JAX.
+    ``cache_prefix_rows`` (hot-prefix rows per table) and
+    ``cache_refresh_every`` (updates between refreshes of the permutation)
+    belong to ``"cached"``. See the JAX class for the measurements behind
+    each default.
     """
 
     batch_size: int = 1024
@@ -71,6 +74,7 @@ class NTupleTrainConfig:
             symmetric=self.symmetric,
             optimistic_init=self.optimistic_init,
             backend=backend,
+            prefix_rows=self.cache_prefix_rows,
         )
 
 
@@ -238,19 +242,30 @@ def train_ntuple(
 
     ``logger`` is anything with ``.write(record)``. Records hold the same
     keys as the JAX package's; ``steps_per_sec`` counts from the first
-    update, whose time includes building the kernels.
+    update, whose time includes building the kernels. With ``"cached"``
+    the permutation is derived before the first update and after every
+    ``cache_refresh_every``-th, as in JAX; the state then holds the new
+    tables.
     """
     if mesh is not None:
         raise NotImplementedError("train_ntuple(mesh=...) is not yet ported to rein48_tpu_torch")
     if checkpointer is not None:
         raise NotImplementedError("train_ntuple(checkpointer=...) is not yet ported to rein48_tpu_torch")
     device = resolve_device(device)
-    state, _ = init_ntuple(config, seed, device)
+    state, net = init_ntuple(config, seed, device)
     step = make_ntuple_step(config, device)
+    cached = net.config.backend == "cached"
+    if cached:
+        # On a fresh init every row's heat is 0, so this fronts the lowest
+        # rows; the dense fallback of an overflowing window stays exact
+        # until the next refresh sees real heat.
+        state = dataclasses.replace(state, params=net.refresh_cache(state.params))
     history = []
     t0 = time.perf_counter()
     for i in range(num_updates):
         state, metrics = step(state)
+        if cached and (i + 1) % config.cache_refresh_every == 0:
+            state = dataclasses.replace(state, params=net.refresh_cache(state.params))
         if (i + 1) % log_every == 0 or i + 1 == num_updates:
             m = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0

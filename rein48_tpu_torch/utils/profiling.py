@@ -9,7 +9,8 @@ overlap), the number of kernel launches, and the kernels that take the
 most device time. Run as a script on a card, it profiles one call of each
 main path of the port at the sizes ``chip_smoke.py`` drives (the rollout,
 ResNet serving, one update of the SJ_2X4 n-tuple trainer per update mode
-and table backend, and one step of n-tuple depth-1 evaluation):
+and table backend, one step of n-tuple depth-1 evaluation, and one
+delayed update of the YEH_4X6 trainer on ``"cached"`` and on ``"torch"``):
 
     python -m rein48_tpu_torch.utils.profiling
 
@@ -18,6 +19,7 @@ and prints one JSON line per path.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -110,6 +112,26 @@ def main() -> None:
         vector.step_autoreset(st, policy(trained.params, st.boards))
 
     out["ntuple eval depth=1 envs=256 chance_chunk=4 backend=mxu (one step)"] = device_breakdown(ntuple_step)
+    del trained
+
+    # The flagship's tables (4 x 16.7M entries) with the cached defaults
+    # (2048 prefix rows), two updates in and refreshed from their heat.
+    for backend in ("cached", "torch"):
+        cfg = nt.NTupleTrainConfig(batch_size=1024, steps_per_update=128, update_mode="delayed", table_backend=backend)
+        net = nt.get_network(cfg.network_config(dev))
+        state = nt.train_ntuple(cfg, 2, seed=0, device=dev)[0]
+        box = [dataclasses.replace(state, params=net.refresh_cache(state.params))]
+        del state
+        step = nt.make_ntuple_step(cfg, dev)
+
+        def update(box=box, step=step):
+            box[0] = step(box[0])[0]
+
+        windows = dict(ntuple.cached_windows)
+        r = device_breakdown(update, warmup=1, reps=2, top=8)
+        r["cached_windows"] = {k: ntuple.cached_windows[k] - windows[k] for k in windows}
+        out[f"ntuple train delayed backend={backend} YEH_4X6 B=1024 T=128 (one update)"] = r
+        del box
     for name, r in out.items():
         print(json.dumps({"path": name, "card": card, **r}))
 

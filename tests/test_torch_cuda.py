@@ -17,7 +17,7 @@ import torch
 
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
-from rein48_tpu_torch.ops import tables
+from rein48_tpu_torch.ops import hbm_tables, tables
 
 pytestmark = pytest.mark.cuda
 
@@ -136,3 +136,88 @@ def test_ntuple_mxu_backend_matches_torch_backend(cuda):
     for k in b:
         assert_sums_close(a[k], b[k], scale[k].abs())
     assert torch.equal(mxu.value(a, boards), plain.value(a, boards))
+
+
+def hot_prefix_inputs(n: int, size: int, k: int, device, seed: int = 0):
+    """A random row map, its ``k`` hot rows, and ``n`` lookups of which about
+    70% fall in hot rows (duplicates included), errors with exact zeros."""
+    g = torch.Generator().manual_seed(seed)
+    rows = size // hbm_tables.ROW
+    rm = torch.randperm(rows, generator=g).to(torch.int32)  # logical row -> physical row
+    hot = torch.argsort(rm)[:k].to(torch.int32)  # the logical rows in physical slots 0..k-1
+    idx = torch.randint(0, size, (n,), generator=g, dtype=torch.int32)
+    in_hot = torch.rand(n, generator=g) < 0.7
+    lanes = torch.randint(0, 8, (int(in_hot.sum()),), generator=g, dtype=torch.int32)
+    idx[in_hot] = hot[torch.randint(0, k, (int(in_hot.sum()),), generator=g)] * hbm_tables.ROW + lanes
+    err = torch.randn(n, generator=g)
+    err[torch.rand(n, generator=g) < 0.2] = 0.0
+    err[torch.rand(n, generator=g) < 0.05] = -0.0
+    return rm.to(device), hot.to(device), idx.to(device), err.to(device)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 65537])
+def test_cached_gather_kernel_is_bit_equal(cuda, n):
+    size = 16**5
+    rm, hot, idx, _ = hot_prefix_inputs(n, size, 1024, cuda, seed=n)
+    table = torch.randn(size, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = dict(hbm_tables.launches)
+    got = hbm_tables.cached_gather(table, rm, hot, idx.reshape(1, -1), prefix_rows=1024)
+    assert hbm_tables.launches["cached_gather"] == before["cached_gather"] + 1
+    assert got.shape == (1, n) and torch.equal(got[0], hbm_tables.cached_gather_reference(table, rm, idx))
+
+
+@pytest.mark.parametrize("n", [1, 16384, 40000])
+@pytest.mark.parametrize("cold_capacity_rows", [16, 1])
+def test_cached_scatter_kernel_matches_plain(cuda, n, cold_capacity_rows):
+    size, k = 16**5, 2048
+    _, hot, idx, err = hot_prefix_inputs(n, size, k, cuda, seed=n + cold_capacity_rows)
+    before = dict(hbm_tables.launches)
+    got = hbm_tables.cached_scatter_blocks(hot, idx, err, prefix_rows=k, cold_capacity_rows=cold_capacity_rows)
+    assert hbm_tables.launches["cached_scatter"] == before["cached_scatter"] + 1
+    want = hbm_tables.cached_scatter_stats_reference(hot, idx, err, cold_capacity_rows)
+    assert_sums_close(got[0], want[0], want[1])
+    assert_sums_close(got[1], want[1], want[1])
+    for name, g, w in zip(("hits", "cold_idx", "cold_err", "counts"), got[2:], want[2:]):
+        assert torch.equal(g, w), name
+    *_, overflow = hbm_tables.cached_scatter_stats(hot, idx, err, prefix_rows=k, cold_capacity_rows=cold_capacity_rows)
+    assert bool(overflow) == bool(want[5].max() > cold_capacity_rows * hbm_tables.ROW)
+
+
+def test_hot_prefix_kernels_reject_bad_inputs(cuda):
+    rm, hot, idx, err = hot_prefix_inputs(64, 16**4, 128, cuda)
+    table = torch.zeros(16**4, device=cuda)
+    before = dict(hbm_tables.launches)
+    with pytest.raises(ValueError, match="idx must be torch.int32 on cuda"):
+        hbm_tables.cached_gather(table, rm, hot, idx.cpu(), prefix_rows=128)
+    with pytest.raises(ValueError, match="hot_rows must have shape"):
+        hbm_tables.cached_scatter_stats(hot[:64], idx, err, prefix_rows=128)
+    with pytest.raises(ValueError, match="err must be torch.float32"):
+        hbm_tables.cached_scatter_stats(hot, idx, err.half(), prefix_rows=128)
+    assert hbm_tables.launches == before
+
+
+def test_ntuple_cached_backend_matches_torch_backend(cuda):
+    kw = dict(tuples=ntuple.SJ_2X4, prefix_rows=128)
+    plain = ntuple.NTupleNetwork(ntuple.NTupleConfig(tuples=ntuple.SJ_2X4, backend="torch"))
+    g = torch.Generator().manual_seed(5)
+    boards = torch.randint(0, 8, (2048, 4, 4), generator=g, dtype=torch.uint8).to(cuda)
+    err = torch.randn(2048, generator=g).to(cuda)
+    for cold_capacity_rows, branch in ((128, "fast"), (1, "fallback")):  # 16,384 lookups a table, most cold
+        cached = ntuple.NTupleNetwork(ntuple.NTupleConfig(backend="cached", cold_capacity_rows=cold_capacity_rows, **kw))
+        a = cached.init_tc(cuda)
+        for p in a.values():
+            if p.dtype == torch.float32:
+                p.copy_(torch.rand(p.shape, generator=g).to(cuda))
+        a = cached.refresh_cache(a)
+        rows = torch.arange(a["t0"].numel(), dtype=torch.int32, device=cuda)
+        b = {k: v[hbm_tables.physical_index(a[f"{k[:2]}_rm"], rows)] for k, v in a.items() if v.dtype == torch.float32}
+        scale = {k: v.abs() for k, v in b.items()}
+        assert torch.equal(cached.value(a, boards), plain.value(b, boards))
+        before = dict(ntuple.cached_windows)
+        cached.td_apply_delayed(a, boards, err, 1.0)
+        assert ntuple.cached_windows[branch] == before[branch] + 2
+        plain.td_apply_delayed(b, boards, err, 1.0)
+        plain.td_apply_delayed(scale, boards, err.abs(), 1.0)  # the same update on magnitudes
+        for k in b:
+            got = a[k][hbm_tables.physical_index(a[f"{k[:2]}_rm"], rows)]
+            assert_sums_close(got, b[k], scale[k].abs())

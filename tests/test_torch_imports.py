@@ -47,4 +47,4 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", _GUARD], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 28  # every module of slices 1-2 was found
+    assert int(proc.stdout.strip()) >= 29  # every module of slices 1-3 was found (ops.hbm_tables is the 29th)

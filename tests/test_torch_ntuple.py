@@ -43,7 +43,7 @@ from rein48_tpu_torch import cli
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import philox, vector
 from rein48_tpu_torch.models import convert
-from rein48_tpu_torch.ops import tables
+from rein48_tpu_torch.ops import hbm_tables, tables
 from rein48_tpu_torch.train import ntuple as train
 
 from test_torch_engine import jax_state, random_boards
@@ -198,8 +198,15 @@ class TestNetwork:
     def test_backends_validated(self):
         with pytest.raises(ValueError, match="mxu"):
             ntuple.NTupleNetwork(ntuple.NTupleConfig(tuples=((0, 1, 2, 3, 4, 5),), backend="mxu"))
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ntuple.NTupleNetwork(ntuple.NTupleConfig(backend="cached"))
+        for make in (ntuple.NTupleNetwork, jntuple.NTupleNetwork):  # tables of 4096 entries
+            with pytest.raises(ValueError, match="backend='cached' needs table sizes divisible by 16384"):
+                make(type(make().config)(tuples=ntuple.TINY_2X3, backend="cached"))
+        for prefix_rows, want in ((32, (128, 128)), (300, (256, 256)), (10**6, (512, 512))):
+            tnet, jnet = (
+                make(type(make().config)(tuples=ntuple.SJ_2X4, backend="cached", prefix_rows=prefix_rows))
+                for make in (ntuple.NTupleNetwork, jntuple.NTupleNetwork)
+            )
+            assert tnet.prefix_rows == jnet.prefix_rows == want
         with pytest.raises(ValueError, match="'torch' is the JAX package's 'xla'"):
             ntuple.NTupleNetwork(ntuple.NTupleConfig(backend="xla"))
         tnet, _ = nets(ntuple.TINY_2X3, "torch", "xla")
@@ -214,10 +221,25 @@ class TestNetwork:
         for bad, match in (
             ({**params, "t0": np.zeros(1000, np.float32)}, "16\\*\\*k"),
             ({**params, "t1_E": np.zeros(256, np.float32)}, "its table"),
-            ({**params, "t0_rm": np.zeros(32, np.int32)}, "cached"),
+            ({**params, "t0_rm": np.zeros(32, np.int32)}, "permutation of the 32 rows"),
+            ({**params, "t0_rm": np.arange(32, dtype=np.int64)}, "flat int32"),
+            ({**params, "t0_rm": np.arange(16, dtype=np.int32)}, "permutation of the 32 rows"),
+            ({**params, "t0_rm": np.arange(32, dtype=np.int32), "t0_hot": np.array([0, 0], np.int32)}, "distinct"),
+            ({**params, "t0_rm": np.arange(32, dtype=np.int32), "t0_hot": np.array([1, 0], np.int32)}, "rm\\[hot"),
+            ({**params, "t0_hot": np.arange(4, dtype=np.int32)}, "rm\\[hot"),  # no row map
+            ({**params, "t0_hot": np.arange(33, dtype=np.int32)}, "at most 32 distinct rows"),
+            ({**params, "t0_Q": params["t0"]}, "unexpected"),
         ):
             with pytest.raises(ValueError, match=match):
                 convert.ntuple_params_from_jax(bad, "cpu")
+        # The "cached" backend's row maps come across as int32.
+        jnet = jntuple.NTupleNetwork(jntuple.NTupleConfig(tuples=ntuple.SJ_2X4, backend="cached", prefix_rows=128))
+        params = {k: np.asarray(v) for k, v in jnet.refresh_cache(jnet.init_tc()).items()}
+        out = convert.ntuple_params_from_jax(params, "cpu")
+        assert sorted(out) == sorted(params)
+        for k, v in params.items():
+            assert out[k].dtype == (torch.int32 if k.endswith(("_rm", "_hot")) else torch.float32), k
+            np.testing.assert_array_equal(out[k].numpy(), v)
 
 
 class ReferenceTrainer:
@@ -384,8 +406,15 @@ class TestTrainer:
                           lambda c: train.make_ntuple_step(train.NTupleTrainConfig(**c), device="cpu")):
             with pytest.raises(ValueError, match="backend='mxu' supports tables <= 65536"):
                 make_step(dict(table_backend="mxu"))  # the 4x6 flagship's tables
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.init_ntuple(train.NTupleTrainConfig(tuples=ntuple.SJ_2X4, table_backend="cached"), 0, "cpu")
+            with pytest.raises(ValueError, match="backend='cached' needs table sizes divisible by 16384"):
+                make_step(dict(tuples=ntuple.TINY_2X3, table_backend="cached"))
+        # "auto" never takes "cached"; naming it builds the network in both.
+        assert all(big.network_config(d).backend != "cached" for d in ("cpu", "cuda"))
+        cached = dict(tuples=ntuple.SJ_2X4, table_backend="cached", cache_prefix_rows=256)
+        _, net = train.init_ntuple(train.NTupleTrainConfig(**cached), 0, "cpu")
+        jnet = jtrain.get_network(jtrain.NTupleTrainConfig(**cached).network_config())
+        assert net.config.backend == jnet.config.backend == "cached"
+        assert net.prefix_rows == jnet.prefix_rows == (256, 256)
 
     def test_trainer_config_defaults_match_jax(self):
         t, j = train.NTupleTrainConfig(), jtrain.NTupleTrainConfig()
@@ -549,3 +578,151 @@ class TestNtupleCli:
         out = capsys.readouterr().out.splitlines()
         assert out[:2] == out[2:] and "loss=1e-07" in out[1]
         assert (tmp_path / "jax" / "metrics.csv").read_text() == (tmp_path / "torch" / "metrics.csv").read_text()
+
+
+def cached_nets(cold_capacity_rows: int = 16):
+    """SJ_2X4 on ``"cached"`` with 128 prefix rows of 512: part of every table is cold."""
+    kw = dict(tuples=ntuple.SJ_2X4, backend="cached", prefix_rows=128, cold_capacity_rows=cold_capacity_rows)
+    return ntuple.NTupleNetwork(ntuple.NTupleConfig(**kw)), jntuple.NTupleNetwork(jntuple.NTupleConfig(**kw))
+
+
+def cached_tables(jnet, seed: int, tc: bool) -> dict:
+    """Random tables in a refreshed, non-identity layout, numpy, JAX key names.
+
+    JAX's ``refresh_cache`` makes the layout from the random heat, so both
+    packages get the same physical tables, row maps and hot rows.
+    """
+    rng = np.random.default_rng(seed)
+    params = {k: jnp.asarray(v) for k, v in jnet.init().items()}
+    for i, n in enumerate(jnet.table_sizes):
+        params[f"t{i}"] = jnp.asarray(rng.normal(size=n).astype(np.float32))
+        if tc:
+            e = rng.normal(size=n).astype(np.float32)
+            params[f"t{i}_E"] = jnp.asarray(e)
+            params[f"t{i}_A"] = jnp.asarray(np.abs(e) * rng.uniform(1.0, 3.0, n).astype(np.float32))
+    params = {k: np.asarray(v) for k, v in jnet.refresh_cache(params).items()}
+    assert not np.array_equal(params["t0_rm"], np.arange(params["t0_rm"].size))
+    return params
+
+
+def logical(params: dict, key: str) -> np.ndarray:
+    """A physical table (or accumulator) of ``"cached"`` in logical order."""
+    table = params[key]
+    i = key[1:].split("_")[0]
+    n = table.shape[0]
+    rm = torch.as_tensor(np.asarray(params[f"t{i}_rm"]))
+    return np.asarray(table)[hbm_tables.physical_index(rm, torch.arange(n, dtype=torch.int32)).numpy()]
+
+
+class TestHotPrefixNetwork:
+    """The port's ``"cached"`` network against JAX's ``"cached"``, on tables
+    carried across with ``convert`` in a refreshed layout. Values are
+    bit-equal; TD updates at ``RTOL, ATOL``."""
+
+    def test_value_bit_equal_to_jax(self):
+        tnet, jnet = cached_nets()
+        tp, jp = both(cached_tables(jnet, 20, tc=False))
+        boards = random_boards(np.random.default_rng(21), 64).reshape(16, 4, 4, 4)
+        got = tnet.value(tp, torch.from_numpy(boards))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jnet.value(jp, jnp.asarray(boards))))
+        # ...and equal to the plain backend reading the same tables unpermuted.
+        plain, _ = nets(ntuple.SJ_2X4, "torch", "xla")
+        flat = {f"t{i}": torch.from_numpy(logical(tp, f"t{i}")) for i in range(2)}
+        assert torch.equal(plain.value(flat, torch.from_numpy(boards)), got)
+
+    @pytest.mark.parametrize("fn", ["td_apply_tc", "td_apply_mean", "td_apply_sum"])
+    def test_step_updates_match_jax(self, fn):
+        tnet, jnet = cached_nets()
+        tc = fn == "td_apply_tc"
+        tp, jp = both(cached_tables(jnet, 22, tc=tc))
+        boards, err = td_inputs(48, 23)
+        boards[24:] = boards[:24]
+        args = (torch.from_numpy(boards), torch.from_numpy(err), 0.5)
+        jargs = (jnp.asarray(boards), jnp.asarray(err), 0.5)
+        if tc:
+            got, want = tnet.td_apply_tc(tp, *args), jnet.td_apply_tc(jp, *jargs)
+        else:
+            collision = fn.split("_")[-1]
+            got, want = tnet.td_apply(tp, *args, collision=collision), jnet.td_apply(jp, *jargs, collision=collision)
+        assert got is tp
+        assert_tables_close(got, want)
+
+    @pytest.mark.parametrize("tc", [True, False])
+    @pytest.mark.parametrize("cold_capacity_rows, branch", [(16, "fast"), (1, "fallback")])
+    def test_td_apply_delayed_matches_jax(self, tc, cold_capacity_rows, branch):
+        tnet, jnet = cached_nets(cold_capacity_rows)
+        tp, jp = both(cached_tables(jnet, 24, tc=tc))
+        boards, err = td_inputs(96, 25)
+        boards[48:] = boards[:48]  # entries hit several times in the window
+        before = dict(ntuple.cached_windows)
+        got = tnet.td_apply_delayed(tp, torch.from_numpy(boards), torch.from_numpy(err), 0.4, tc=tc)
+        want = jnet.td_apply_delayed(jp, jnp.asarray(boards), jnp.asarray(err), 0.4, tc=tc)
+        # 768 lookups per table, about three quarters cold: 128 slots overflow, 2,048 do not.
+        assert ntuple.cached_windows[branch] == before[branch] + 2
+        assert_tables_close(got, want)
+
+    def test_refresh_cache_keeps_values_and_matches_jax(self):
+        tnet, jnet = cached_nets()
+        rng = np.random.default_rng(26)
+        params = {k: np.asarray(v) for k, v in jnet.init_tc().items()}
+        for i in range(2):
+            params[f"t{i}"] = rng.normal(size=params[f"t{i}"].size).astype(np.float32)
+            # Whole-number heat: row sums are exact in either package's order.
+            params[f"t{i}_A"] = rng.integers(0, 1000, params[f"t{i}"].size).astype(np.float32)
+        tp, jp = both(params)
+        boards = torch.from_numpy(random_boards(np.random.default_rng(27), 64))
+        v0 = tnet.value(tp, boards)
+        new = tnet.refresh_cache(tp)
+        assert new is not tp and new["t0"] is not tp["t0"]
+        assert torch.equal(tnet.value(new, boards), v0)
+        assert not torch.equal(new["t0_rm"], tp["t0_rm"])
+        want = jnet.refresh_cache(jp)
+        for k in want:
+            np.testing.assert_array_equal(new[k].numpy(), np.asarray(want[k]), err_msg=k)
+        plain, _ = nets(ntuple.SJ_2X4, "torch", "xla")
+        assert plain.refresh_cache(tp) is tp  # other backends keep their layout
+
+
+class TestHotPrefixTrainer:
+    """The port's ``"cached"`` trainer against its ``"torch"`` trainer from
+    the same seed (``tests/test_ntuple.py:671-705``): the permutation only
+    relabels the tables' rows, so boards are equal and the logical tables
+    exact in step mode, and within ``RTOL, ATOL`` in delayed mode, whose
+    sums the kernel reassociates."""
+
+    BASE = dict(tuples=ntuple.SJ_2X4, batch_size=8, steps_per_update=8)
+
+    def train(self, mode: str, backend: str, updates: int = 3):
+        cfg = train.NTupleTrainConfig(
+            **self.BASE, update_mode=mode, delay_window=4 if mode == "delayed" else None, table_backend=backend,
+            cache_prefix_rows=32, cache_refresh_every=2,
+        )
+        return train.train_ntuple(cfg, num_updates=updates, seed=5, log_every=1, device="cpu")[0], cfg
+
+    @pytest.mark.parametrize("mode", ["step", "delayed"])
+    def test_matches_torch_trainer(self, mode):
+        launched, windows = dict(hbm_tables.launches), dict(ntuple.cached_windows)
+        sc, _ = self.train(mode, "cached")
+        st, _ = self.train(mode, "torch")
+        assert hbm_tables.launches == launched  # the CPU runs the plain versions
+        np.testing.assert_array_equal(sc.env.boards.numpy(), st.env.boards.numpy())
+        np.testing.assert_array_equal(sc.prev_after.numpy(), st.prev_after.numpy())
+        # A refresh after update 2 saw real heat and moved rows.
+        assert not np.array_equal(sc.params["t0_rm"].numpy(), np.arange(512))
+        for key in st.params:
+            a, b = st.params[key].numpy(), logical(sc.params, key)
+            if mode == "step":
+                np.testing.assert_array_equal(b, a, err_msg=key)
+            else:
+                np.testing.assert_allclose(b, a, rtol=RTOL, atol=ATOL, err_msg=key)
+        n_windows = sum(ntuple.cached_windows[k] - windows[k] for k in windows)
+        assert n_windows == (2 * 3 * 2 if mode == "delayed" else 0)  # tables x updates x windows
+
+    def test_evaluate_matches_unpermuted_torch(self):
+        sc, cfg = self.train("delayed", "cached", updates=2)
+        plain = {k: torch.from_numpy(logical(sc.params, k)) for k in ("t0", "t1")}
+        for depth in (0, 1):
+            kw = dict(depth=depth, num_envs=16, num_steps=48, seed=9, protocol="first", chance_chunk=4, device="cpu")
+            got = train.evaluate_ntuple(sc.params, cfg, **kw)
+            want = train.evaluate_ntuple(plain, dataclasses.replace(cfg, table_backend="torch"), **kw)
+            assert got == want, depth
