@@ -7,7 +7,8 @@
 
 Builds the CUDA kernels from ``rein48_tpu_torch/csrc`` with ``nvcc``, holds
 each kernel against its plain PyTorch version at the shapes its main path
-gives it, drives the port's main paths through their entry points (the
+gives it, times an empty kernel as the card's launch floor, drives the
+port's main paths through their entry points (the
 ``bench`` rollout, full-width ResNet depth-0/depth-1 ``evaluate_search``,
 the ``SJ_2X4`` n-tuple trainer ``train_ntuple`` in both update modes with
 its depth-0/depth-1 ``evaluate_ntuple``, the ``YEH_4X6`` trainer on the
@@ -166,19 +167,37 @@ def sass_per_step(lib, kernel: str, steps_per_iteration: int) -> tuple[float, fl
     return len(path) / steps_per_iteration, pipe / steps_per_iteration
 
 
-def timed(fn, reps: int = 50) -> dict:
+def timed(fn, reps: int = 50, kernel: str | None = None) -> dict:
     """Device and host time of one call of ``fn()``, after an untimed call.
 
     ``ms`` sums the device time of every kernel ``fn`` launches (the
     profiler's CUDA activity), so a launch-bound call is not timed by its
     host; ``call_ms`` is the host-bound time per call of a back-to-back
-    loop (CUDA events); ``kernels`` the device time of each kernel.
+    loop (CUDA events); ``launches`` the kernels launched per call;
+    ``kernels`` the device time of each kernel; ``kernel_ms`` that of the
+    kernels whose name holds ``kernel``.
     """
     from rein48_tpu_torch.utils import profiling
 
-    r = profiling.device_breakdown(fn, warmup=1, reps=reps, top=4)
+    r = profiling.device_breakdown(fn, warmup=1, reps=reps, top=8)
     call_ms = cuda_ms(fn, reps)
-    return {"ms": r["device_ms"], "call_ms": call_ms, "kernels": {t["kernel"][:40]: t["ms"] for t in r["top"]}}
+    out = {"ms": r["device_ms"], "call_ms": call_ms, "launches": r["launches"],
+           "kernels": {t["kernel"][:40]: t["ms"] for t in r["top"][:4]}}
+    if kernel:
+        out["kernel_ms"] = round(sum(t["ms"] for t in r["top"] if kernel in t["kernel"]), 6)
+    return out
+
+
+def floor_phase(dev) -> float:
+    """The card's launch floor: the device time of an empty kernel (one
+    warp), timed as the table kernels are."""
+    from rein48_tpu_torch.ops import tables
+
+    f = timed(lambda: tables.empty_launch(dev))
+    log("floor", kernel="empty_kernel (1 warp)", ms=f["ms"], call_ms=round(f["call_ms"], 5), launches_per_call=f["launches"])
+    if f["launches"] != 1 or not f["ms"] > 0:
+        raise AssertionError(f"the empty kernel did not time as one launch: {f}")
+    return f["ms"]
 
 
 def zero_table_counts() -> None:
@@ -310,12 +329,15 @@ def table_kernel_phase(state, net, gathers, window):
         hot = int(torch.bincount(idx[vals != 0], minlength=size).max())
         log("tables/scatter", form=form, n=n, table=size, zeros=int((vals == 0).sum()), hottest_entry_hits=hot,
             within_tol=ok, hits_equal=hits_equal, max_abs_err=f"{err:.3g}", err_over_tol=f"{ratio:.3g}",
-            second_run_bit_equal=rerun_equal, ms=k["ms"], call_ms=round(k["call_ms"], 5), plain_ms=p["ms"],
-            plain_call_ms=round(p["call_ms"], 5), library_ms=lib["ms"], library_call_ms=round(lib["call_ms"], 5),
+            second_run_bit_equal=rerun_equal, ms=k["ms"], call_ms=round(k["call_ms"], 5), launches_per_call=k["launches"],
+            plain_ms=p["ms"], plain_call_ms=round(p["call_ms"], 5), library_ms=lib["ms"], library_call_ms=round(lib["call_ms"], 5),
             bound_ms=round(bound_ms, 6), kernels=json.dumps(k["kernels"]), library_kernels=json.dumps(lib["kernels"]))
         if not (ok and hits_equal):
             raise AssertionError(f"scatter kernel ({form}, n={n}) disagrees with its plain version")
-        scatter[(form, n)] = dict(n=n, ms=k["ms"], plain_ms=p["ms"], library_ms=lib["ms"], bound_ms=bound_ms, err=err, ratio=ratio)
+        if k["launches"] != 2:  # the zero fill and the kernel
+            raise AssertionError(f"scatter call ({form}, n={n}) made {k['launches']} launches, not 2")
+        scatter[(form, n)] = dict(n=n, ms=k["ms"], plain_ms=p["ms"], library_ms=lib["ms"], bound_ms=bound_ms, err=err, ratio=ratio,
+                                  launches_per_call=k["launches"])
     return gather, scatter
 
 
@@ -511,8 +533,8 @@ def cached_trainer_inputs(dev):
     and what its steps feed the hot-prefix kernels.
 
     Returns ``(state, net, idx, window)``: ``idx`` the lookup indices of
-    table 0 that ``value(afterstates)`` gathers (32,768), ``window`` the
-    backups of four steps with the tables frozen, as ``(boards, errs)``.
+    table 0 that ``value(afterstates)`` gathers (32,768), and ``window``
+    the backups of four steps with the tables frozen, as ``(boards, errs)``.
     """
     from rein48_tpu_torch.train import ntuple as nt
 
@@ -532,12 +554,18 @@ def cached_trainer_inputs(dev):
 
 def hbm_kernel_phase(state, net, idx, window):
     """The hot-prefix kernels against their plain versions at the trainer's
-    shapes, their times, the plain versions', and the bound by bytes."""
+    shapes, their times, the plain versions', and the bound by bytes.
+
+    The scatter runs on one window at two states: ``just-refreshed``, at the
+    trainer's cold capacity, which the window fits, and ``overflowing``, the
+    same window with the capacity lowered just below its largest block's
+    cold count, as the trainer's overflowing windows exceed it with the
+    same hot share.
+    """
     from rein48_tpu_torch.ops import hbm_tables
 
     p = state.params
     table, rm, hot, k = p["t0"], p["t0_rm"], p["t0_hot"], net.prefix_rows[0]
-    cap = net.config.cold_capacity_rows * hbm_tables.ROW
 
     got = hbm_tables.cached_gather(table, rm, hot, idx, prefix_rows=k)
     equal = bool(torch.equal(got, hbm_tables.cached_gather_reference(table, rm, idx)))
@@ -561,27 +589,46 @@ def hbm_kernel_phase(state, net, idx, window):
     lookups = net.num_lookups // len(net.table_sizes)
     sidx = net.indices(boards)[0].reshape(-1)
     d = errs[:, None].expand(-1, lookups).reshape(-1).contiguous()
-    got = hbm_tables.cached_scatter_blocks(hot, sidx, d, prefix_rows=k)
-    want = hbm_tables.cached_scatter_stats_reference(hot, sidx, d)
-    # want[1] sums |err| per entry: the magnitudes of each sum's terms.
-    ok, err, ratio = close_tables(got[:2], want[:2], [want[1], want[1]])
-    exact = {name: bool(torch.equal(g, w)) for name, g, w in zip(("hits", "cold_idx", "cold_err", "counts"), got[2:], want[2:])}
-    counts = got[5]
     ns = sidx.numel()
-    n_blocks = counts.numel()
-    kt = timed(lambda: hbm_tables.cached_scatter_stats(hot, sidx, d, prefix_rows=k))
-    pt = timed(lambda: hbm_tables.cached_scatter_stats_reference(hot, sidx, d), reps=10)
-    # Each index and error read once; the three [K, 128] sums, the residue and the counts written once.
-    bound_ms = 1e3 * (8 * ns + 3 * 4 * k * hbm_tables.ROW + 8 * n_blocks * cap + 4 * n_blocks) / HBM_BYTES_PER_S
-    log("hbm/scatter", call="one delayed window", n=ns, prefix_rows=k, capacity=cap,
-        hot_share=round(1.0 - float(counts.sum()) / ns, 4), cold_per_block=counts.tolist(),
-        overflow=bool(counts.max() > cap), hottest_entry_hits=int(got[2].max()), within_tol=ok, exact=json.dumps(exact),
-        max_abs_err=f"{err:.3g}", err_over_tol=f"{ratio:.3g}", ms=kt["ms"], call_ms=round(kt["call_ms"], 5),
-        plain_ms=pt["ms"], plain_call_ms=round(pt["call_ms"], 5), bound_ms=round(bound_ms, 6),
-        kernels=json.dumps(kt["kernels"]), plain_kernels=json.dumps(pt["kernels"]))
-    if not (ok and all(exact.values())):
-        raise AssertionError("cached_scatter kernel disagrees with its plain version")
-    return gather, dict(n=ns, ms=kt["ms"], plain_ms=pt["ms"], bound_ms=bound_ms, err=err, ratio=ratio)
+    scatter = {}
+    cap_rows = net.config.cold_capacity_rows
+    for state_name in ("just-refreshed", "overflowing"):
+        if state_name == "overflowing":
+            cap_rows = max(1, (int(scatter["just-refreshed"]["cold_max"]) - 1) // hbm_tables.ROW)
+        cap = cap_rows * hbm_tables.ROW
+        got = hbm_tables.cached_scatter_blocks(hot, sidx, d, prefix_rows=k, cold_capacity_rows=cap_rows)
+        want = hbm_tables.cached_scatter_stats_reference(hot, sidx, d, cap_rows)
+        # want[1] sums |err| per entry: the magnitudes of each sum's terms.
+        ok, err, ratio = close_tables(got[:2], want[:2], [want[1], want[1]])
+        names = ("hits", "cold_idx", "cold_err", "counts")
+        exact = {name: bool(torch.equal(g, w)) for name, g, w in zip(names, got[2:], want[2:])}
+        counts = got[5]
+        n_blocks = counts.numel()
+
+        def call(cap_rows=cap_rows):
+            return hbm_tables.cached_scatter_stats(hot, sidx, d, prefix_rows=k, cold_capacity_rows=cap_rows)
+
+        overflow = bool(call()[5])
+        kt = timed(call, kernel="cached_scatter")
+        pt = timed(lambda cap_rows=cap_rows: hbm_tables.cached_scatter_stats_reference(hot, sidx, d, cap_rows), reps=10)
+        # Each index and error read once; the three [K, 128] sums, the residue and the counts written once.
+        bound_ms = 1e3 * (8 * ns + 3 * 4 * k * hbm_tables.ROW + 8 * n_blocks * cap + 4 * n_blocks) / HBM_BYTES_PER_S
+        log("hbm/scatter", call="one delayed window", state=state_name, n=ns, prefix_rows=k, capacity=cap,
+            hot_share=round(1.0 - float(counts.sum()) / ns, 4), cold_per_block=counts.tolist(), overflow=overflow,
+            hottest_entry_hits=int(got[2].max()), within_tol=ok, exact=json.dumps(exact), max_abs_err=f"{err:.3g}",
+            err_over_tol=f"{ratio:.3g}", ms=kt["ms"], kernel_ms=kt["kernel_ms"], call_ms=round(kt["call_ms"], 5),
+            launches_per_call=kt["launches"], plain_ms=pt["ms"], plain_call_ms=round(pt["call_ms"], 5),
+            bound_ms=round(bound_ms, 6), kernels=json.dumps(kt["kernels"]), plain_kernels=json.dumps(pt["kernels"]))
+        if not (ok and all(exact.values())):
+            raise AssertionError(f"cached_scatter kernel disagrees with its plain version ({state_name})")
+        if overflow != bool(counts.max() > cap) or overflow != (state_name == "overflowing"):
+            raise AssertionError(f"cached_scatter overflow flag {overflow} at the {state_name} state, counts {counts.tolist()}")
+        if k <= hbm_tables.HASH_MAX_ROWS and kt["launches"] > 3:
+            raise AssertionError(f"cached_scatter call made {kt['launches']} launches at K={k}")
+        scatter[state_name] = dict(n=ns, ms=kt["ms"], kernel_ms=kt["kernel_ms"], launches_per_call=kt["launches"],
+                                   plain_ms=pt["ms"], bound_ms=bound_ms, err=err, ratio=ratio,
+                                   cold_max=int(counts.max()))
+    return gather, scatter
 
 
 def cached_network_phase(state, net, window):
@@ -912,10 +959,13 @@ def main() -> int:
             "library_ms": None,
         }
     ]
-    # 7-11. The n-tuple family: the table kernels against their plain
-    # versions at the trainer's shapes, the network's two backends on the
-    # card, then the main paths with the counts at 0: the trainer in both
-    # update modes with its depth-0 and depth-1 evaluation, and the CLI.
+    # 7-11. The card's launch floor; the n-tuple family: the table kernels
+    # against their plain versions at the trainer's shapes, the network's two
+    # backends on the card, then the main paths with the counts at 0: the
+    # trainer in both update modes with its depth-0 and depth-1 evaluation,
+    # and the CLI. The floor is timed here, after the host-bound serving
+    # runs, so that no profiler session precedes those.
+    floor_ms = floor_phase(dev)
     state, net, gathers, window = ntuple_trainer_inputs(dev)
     gather, scatter = table_kernel_phase(state, net, gathers, window)
     net_err = ntuple_network_phase(state, net, window)
@@ -941,6 +991,8 @@ def main() -> int:
         if v <= 0:
             raise AssertionError(f"the n-tuple main paths launched no {k} kernel")
     g, sc = gather["value(afterstates)"], scatter[("stats", NT_B * 2 * 8)]
+    sc_big, hp_over = scatter[("stats", NT_B * 2 * 8 * 4)], hp_scatter["overflowing"]
+    hp_scatter = hp_scatter["just-refreshed"]
     kernels += [
         {
             "name": "table_gather",
@@ -969,6 +1021,9 @@ def main() -> int:
             "err_over_tol": max(v["ratio"] for v in scatter.values()),
             "n": sc["n"],
             "ms": sc["ms"],
+            "launches_per_call": sc["launches_per_call"],
+            "n_window": sc_big["n"],
+            "ms_window": sc_big["ms"],
             "plain_ms": sc["plain_ms"],
             "bound_ms": round(sc["bound_ms"], 6),
             "bound_by": "bytes",
@@ -1001,12 +1056,20 @@ def main() -> int:
             "err_over_tol": hp_scatter["ratio"],
             "n": hp_scatter["n"],
             "ms": hp_scatter["ms"],
+            "kernel_ms": hp_scatter["kernel_ms"],
+            "launches_per_call": hp_scatter["launches_per_call"],
+            "overflowing_ms": hp_over["ms"],
+            "overflowing_kernel_ms": hp_over["kernel_ms"],
             "plain_ms": hp_scatter["plain_ms"],
             "bound_ms": round(hp_scatter["bound_ms"], 6),
             "bound_by": "bytes",
             "library_ms": None,
         },
     ]
+    for entry in kernels:
+        # The main path's time over the least any launch of this work can take.
+        entry["floor_ms"] = floor_ms
+        entry["gap_ms"] = round(entry["launches"] * (entry["ms"] - max(entry["bound_ms"], floor_ms)), 4)
     log("kernels", total_seconds=f"{time.perf_counter() - t_start:.1f}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

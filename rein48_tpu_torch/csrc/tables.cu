@@ -21,15 +21,28 @@
 //   227 KB of shared memory a block can have, so the table is read through
 //   the read-only path and stays resident in the 50 MB L2 instead of being
 //   staged in shared memory.
-// * table_scatter: dense sums of vals scattered at idx, one thread per
-//   element, by atomicAdd into outputs that the wrapper has zeroed. The sum
-//   form adds v; the stats form adds v, |v| and 1 into err, abs and hits.
-//   Elements with v == 0 (0 and -0: the trainer's masked backups) are
-//   skipped: they change no sum and must not count as hits. hits is exact
-//   (integer counts far below 2^24). Bound: bytes (n x 8 B read, the dense
-//   outputs written once). Many early-game boards hit the same few entries
-//   (the all-empty tuple is index 0), so same-address atomics serialise in
-//   L2; this first version takes that cost (no warp aggregation).
+// * table_scatter: dense sums of vals scattered at idx, into outputs that
+//   the wrapper has zeroed. The sum form adds v; the stats form adds v, |v|
+//   and 1 into err, abs and hits. Elements with v == 0 (0 and -0: the
+//   trainer's masked backups) are skipped: they change no sum and must not
+//   count as hits. hits is exact (integer counts far below 2^24). Bound:
+//   bytes (n x 8 B read, the dense outputs written once), a fraction of a
+//   microsecond, so launch latency and same-address atomics decide its
+//   time: many early-game boards hit the same few entries (the all-empty
+//   tuple is index 0). One thread per element, grid-stride in whole warps;
+//   the lanes of a warp that add to one entry are combined first
+//   (warp_aggregate.cuh) and the group's leader adds its sums with atomics
+//   whose results are unused (RED), so the hottest entry takes one add per
+//   warp and not one per lane. The zero fill stays a separate launch: four
+//   designs that zero and add in one launch ran slower on the H100 than
+//   this kernel behind the fill. A cooperative grid that zeroes, meets at a
+//   grid barrier and adds pays about a launch for the barrier; one cluster
+//   of 8 or 16 CTAs has too few SMs for the fill and the adds; and sums held
+//   in clusters' shared memory pay for slow atomics into another SM's
+//   shared memory, or for every cluster reading every element.
+// * empty_kernel: does nothing. Its device time is the card's launch floor,
+//   the least time any kernel takes, against which chip_smoke.py ranks the
+//   kernels that are far from their bytes bound. No path runs it.
 //
 // The float sums are reassociated against a sequential scatter-add, as the
 // TPU kernel's limb fold also reassociates them, and atomics make their
@@ -42,6 +55,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "warp_aggregate.cuh"
 
 namespace {
 
@@ -69,17 +84,26 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(const int32_t* __rest
                                                            float* __restrict__ abs_sum,
                                                            float* __restrict__ hits, long long n) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += stride) {
-    const float v = vals[i];
-    if (v == 0.0f) continue;
-    const int32_t j = idx[i];
-    atomicAdd(err + j, v);
-    if (kStats) {
-      atomicAdd(abs_sum + j, fabsf(v));
-      atomicAdd(hits + j, 1.0f);
+  const int lane = threadIdx.x & 31;
+  // A warp's elements start at a multiple of 32, so `first < n` is the same
+  // in all its lanes and every lane reaches the vote.
+  for (long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x - lane; first < n;
+       first += stride) {
+    const long long i = first + lane;
+    const float v = i < n ? vals[i] : 0.0f;
+    const int j = i < n && v != 0.0f ? idx[i] : -1;
+    const rein48::GroupSums g = rein48::warp_group_sums<kStats>(j, v);
+    if (g.leader) {  // the adds' results are unused, so they compile to reductions (RED)
+      atomicAdd(err + j, g.sum);
+      if (kStats) {
+        atomicAdd(abs_sum + j, g.abs_sum);
+        atomicAdd(hits + j, static_cast<float>(g.count));
+      }
     }
   }
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -107,5 +131,11 @@ extern "C" int rein48_table_scatter(const void* idx, const void* vals, void* err
   } else {
     scatter_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(i, v, static_cast<float*>(err), nullptr, nullptr, n);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the empty kernel once (one warp). Returns the CUDA error of the launch.
+extern "C" int rein48_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

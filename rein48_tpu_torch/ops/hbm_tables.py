@@ -17,7 +17,9 @@ file):
 * :func:`cached_gather`: ``table_logical[idx]``, bit-exact;
 * :func:`cached_scatter_stats`: ``(err_sum, abs_sum, hits)`` over the
   ``K`` hot rows, plus the cold elements compacted per 16,384-element
-  block in element order and an overflow flag.
+  block in element order and an overflow flag. For ``K`` up to
+  :data:`HASH_MAX_ROWS` a call is two launches (the zero fill of the sums
+  and the flag, then the kernel), with no sort of the hot rows.
 
 Each keeps its JAX name, signature, output shapes and dtypes. A CUDA
 tensor launches the kernel or raises; a CPU tensor runs the plain version
@@ -38,6 +40,10 @@ from rein48_tpu_torch.ops.tables import _check, _raise_on, _stream
 ROW = 128  # table row width
 G_BLK = 128  # rows of elements per block of the scatter's cold residue
 BLOCK = G_BLK * ROW  # 16,384 elements
+# The most hot rows whose hash fits a block's shared memory; above, the
+# wrapper sorts the rows and hands the kernel their slots, and the kernel
+# binary-searches them.
+HASH_MAX_ROWS = 8192
 
 # Kernel launches per kernel since the counts were last set to 0.
 launches = {"cached_gather": 0, "cached_scatter": 0}
@@ -49,7 +55,7 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 2
     + [ctypes.c_int]
     + [ctypes.c_void_p] * 5
-    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
 }
 _fns: dict = {}
 
@@ -256,26 +262,51 @@ def _launch_scatter(hot_rows, idx, err, cold_capacity_rows: int):
     k, n = hot_rows.shape[0], idx.shape[0]
     cap = cold_capacity_rows * ROW
     n_blocks = -(-n // BLOCK)
-    stats = torch.zeros((3, k, ROW), dtype=torch.float32, device=dev)
+    # The three [K, 128] sums, then one word whose first byte is the
+    # overflow flag: zeroed in one launch.
+    buf = torch.zeros(3 * k * ROW + 1, dtype=torch.float32, device=dev)
+    stats = buf[: 3 * k * ROW].view(3, k, ROW)
+    flag_at = 4 * 3 * k * ROW
+    overflow = buf.view(torch.uint8)[flag_at : flag_at + 1].view(torch.bool).reshape(())
     # The kernel writes every slot of the residue and every count.
     cold_idx = torch.empty(n_blocks * cap, dtype=torch.int32, device=dev)
     cold_err = torch.empty(n_blocks * cap, dtype=torch.float32, device=dev)
     counts = torch.empty(n_blocks, dtype=torch.int32, device=dev)
     if n == 0:
-        return stats[0], stats[1], stats[2], cold_idx, cold_err, counts
-    sorted_rows, slot_of = torch.sort(hot_rows)
-    slot_of = slot_of.to(torch.int32)
+        return stats[0], stats[1], stats[2], cold_idx, cold_err, counts, overflow
+    rows, slot_of = hot_rows, None
+    if k > HASH_MAX_ROWS:
+        rows, slot_of = torch.sort(hot_rows)
+        slot_of = slot_of.to(torch.int32)
     fn = _fn("rein48_cached_scatter")
-    base = stats.data_ptr()
+    base = buf.data_ptr()
     with torch.cuda.device(dev):
         status = fn(
-            idx.data_ptr(), err.data_ptr(), n, sorted_rows.data_ptr(), slot_of.data_ptr(), k,
+            idx.data_ptr(), err.data_ptr(), n, rows.data_ptr(), 0 if slot_of is None else slot_of.data_ptr(), k,
             base, base + 4 * k * ROW, base + 8 * k * ROW, cold_idx.data_ptr(), cold_err.data_ptr(),
-            cap, counts.data_ptr(), _stream(dev),
+            cap, counts.data_ptr(), base + flag_at, _stream(dev),
         )
     launches["cached_scatter"] += 1
     _raise_on(status, "cached_scatter")
-    return stats[0], stats[1], stats[2], cold_idx, cold_err, counts
+    return stats[0], stats[1], stats[2], cold_idx, cold_err, counts, overflow
+
+
+def _scatter(hot_rows, idx, err, prefix_rows: int, cold_capacity_rows: int):
+    """The scatter's outputs: those of :func:`cached_scatter_blocks`, then the overflow flag."""
+    dev = idx.device
+    if idx.shape != err.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} and err {tuple(err.shape)} differ in shape")
+    _check_hot(hot_rows, prefix_rows, dev)
+    _check("idx", idx, torch.int32, dev)
+    _check("err", err, torch.float32, dev)
+    _check_padded("cached_scatter_stats", idx.numel())
+    idx, err = idx.reshape(-1), err.reshape(-1)
+    if dev.type == "cuda":
+        return _launch_scatter(hot_rows, idx, err, cold_capacity_rows)
+    if dev.type != "cpu":
+        raise ValueError(f"no table kernel for device {dev}")
+    out = cached_scatter_stats_reference(hot_rows, idx, err, cold_capacity_rows)
+    return (*out, (out[5] > cold_capacity_rows * ROW).any())
 
 
 def cached_scatter_blocks(
@@ -291,19 +322,7 @@ def cached_scatter_blocks(
     Returns ``(err_sum, abs_sum, hits, cold_idx, cold_err, counts)`` as
     :func:`cached_scatter_stats_reference` describes them.
     """
-    dev = idx.device
-    if idx.shape != err.shape:
-        raise ValueError(f"idx {tuple(idx.shape)} and err {tuple(err.shape)} differ in shape")
-    _check_hot(hot_rows, prefix_rows, dev)
-    _check("idx", idx, torch.int32, dev)
-    _check("err", err, torch.float32, dev)
-    _check_padded("cached_scatter_stats", idx.numel())
-    idx, err = idx.reshape(-1), err.reshape(-1)
-    if dev.type == "cuda":
-        return _launch_scatter(hot_rows, idx, err, cold_capacity_rows)
-    if dev.type != "cpu":
-        raise ValueError(f"no table kernel for device {dev}")
-    return cached_scatter_stats_reference(hot_rows, idx, err, cold_capacity_rows)
+    return _scatter(hot_rows, idx, err, prefix_rows, cold_capacity_rows)[:6]
 
 
 def cached_scatter_stats(
@@ -325,11 +344,7 @@ def cached_scatter_stats(
     exactly; the sums are reassociated against a sequential scatter-add
     (on the card by atomics, in an order that changes from run to run).
     """
-    err_sum, abs_sum, hits, cold_idx, cold_err, counts = cached_scatter_blocks(
-        hot_rows, idx, err, prefix_rows=prefix_rows, cold_capacity_rows=cold_capacity_rows
+    err_sum, abs_sum, hits, cold_idx, cold_err, _, overflow = _scatter(
+        hot_rows, idx, err, prefix_rows, cold_capacity_rows
     )
-    if counts.numel() == 0:
-        overflow = torch.zeros((), dtype=torch.bool, device=counts.device)
-    else:
-        overflow = counts.max() > cold_capacity_rows * ROW
     return err_sum, abs_sum, hits, cold_idx, cold_err, overflow

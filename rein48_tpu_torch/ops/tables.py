@@ -6,7 +6,7 @@ The JAX package's ``"mxu"`` table backend runs two Pallas kernels that
 turn a gather and a scatter-add into one-hot bf16 matrix products, a TPU
 workaround for its lack of fast random access. On Hopper the kernels of
 ``csrc/tables.cu`` compute the same functions with plain loads and
-``atomicAdd``; see the note at the top of that file.
+warp-aggregated atomics; see the note at the top of that file.
 
 Each function keeps its JAX name, semantics and shapes. A CUDA tensor
 launches the kernel or raises; a CPU tensor runs the plain version
@@ -36,6 +36,7 @@ launches = {"table_gather": 0, "table_scatter": 0}
 _ARGTYPES = {
     "rein48_table_gather": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p],
     "rein48_table_scatter": [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "rein48_empty": [ctypes.c_void_p],
 }
 _fns: dict = {}
 
@@ -120,6 +121,17 @@ def _launch_scatter(size: int, idx: torch.Tensor, vals: torch.Tensor, stats: boo
     launches["table_scatter"] += 1
     _raise_on(err, "table_scatter")
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch ``csrc/tables.cu``'s empty kernel once on ``device``.
+
+    Its device time is the card's launch floor, the least time any kernel
+    takes; ``chip_smoke.py`` measures it beside the table kernels. No path
+    runs it, and ``launches`` does not count it.
+    """
+    with torch.cuda.device(device):
+        _raise_on(_fn("rein48_empty")(_stream(device)), "empty")
 
 
 def mxu_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -5,12 +5,14 @@
 :func:`device_breakdown` runs a function under ``torch.profiler`` and
 reports, per call: host wall time, device kernel time, the device's busy
 share (kernel time over wall time; one stream, so kernels do not
-overlap), the number of kernel launches, and the kernels that take the
-most device time. Run as a script on a card, it profiles one call of each
-main path of the port at the sizes ``chip_smoke.py`` drives (the rollout,
-ResNet serving, one update of the SJ_2X4 n-tuple trainer per update mode
-and table backend, one step of n-tuple depth-1 evaluation, and one
-delayed update of the YEH_4X6 trainer on ``"cached"`` and on ``"torch"``):
+overlap), the number of kernel launches (the host's calls that launch a
+kernel, ``cudaLaunchKernel*`` and ``cuLaunchKernel*``), and the kernels
+that take the most device time. Run as a script on a card, it profiles
+one call of each main path of the port at the sizes ``chip_smoke.py``
+drives (the rollout, ResNet serving, one update of the SJ_2X4 n-tuple
+trainer per update mode and table backend, one step of n-tuple depth-1
+evaluation, and one delayed update of the YEH_4X6 trainer on
+``"cached"`` and on ``"torch"``):
 
     python -m rein48_tpu_torch.utils.profiling
 
@@ -26,6 +28,10 @@ import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+
+# Host calls that launch one kernel each, by the runtime or the driver API.
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
 def _device_us(evt) -> float:
@@ -46,14 +52,16 @@ def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dic
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and _device_us(e) > 0]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA" and _device_us(e) > 0]
+    launch_calls = sum(e.count for e in events if e.device_type.name == "CPU" and e.key.startswith(_LAUNCH_CALLS))
     device_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
     kernels.sort(key=_device_us, reverse=True)
     return {
         "wall_ms": round(wall_ms, 4),
         "device_ms": round(device_ms, 6),
         "busy_share": round(device_ms / wall_ms, 4) if wall_ms else None,
-        "launches": sum(e.count for e in kernels) // reps,
+        "launches": launch_calls // reps,
         "top": [
             {"kernel": e.key[:80], "ms": round(_device_us(e) / 1e3 / reps, 6), "calls": e.count // reps}
             for e in kernels[:top]

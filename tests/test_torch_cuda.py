@@ -91,10 +91,22 @@ def test_table_gather_kernel_is_bit_equal(cuda, n, size):
     assert got.shape == (1, n) and torch.equal(got[0], tables.gather_reference(table, idx))
 
 
+def table_stream(stream: str, n: int, size: int, device, seed: int = 0):
+    """``table_inputs``; "one-entry": every element on one entry; "all-zero":
+    every value an exact zero of either sign."""
+    idx, vals = table_inputs(n, size, device, seed)
+    if stream == "one-entry":
+        idx = torch.full_like(idx, 12345 % size)
+    elif stream == "all-zero":
+        vals = torch.where(torch.arange(n, device=device) % 3 == 0, -0.0, 0.0)
+    return idx, vals
+
+
+@pytest.mark.parametrize("stream", ["random", "one-entry", "all-zero"])
 @pytest.mark.parametrize("n", [1, 1000, 65537])
-def test_table_scatter_kernel_matches_plain(cuda, n):
+def test_table_scatter_kernel_matches_plain(cuda, n, stream):
     size = 65536
-    idx, vals = table_inputs(n, size, cuda, seed=n)
+    idx, vals = table_stream(stream, n, size, cuda, seed=n)
     before = dict(tables.launches)
     got = tables.mxu_scatter_stats(size, idx, vals)
     got_sum = tables.mxu_scatter_sum(size, idx, vals)
@@ -105,6 +117,25 @@ def test_table_scatter_kernel_matches_plain(cuda, n):
     assert_sums_close(got[1], want[1], want[1])
     assert_sums_close(got_sum, want[0], want[1])
     assert torch.equal(got[2], want[2])  # hits: exact counts of nonzero values
+
+
+@pytest.mark.parametrize("stream", ["random", "one-entry", "all-zero"])
+def test_table_scatter_kernel_is_repeatable(cuda, stream):
+    # A second run on reused memory gives the same hits, and sums within the tolerance.
+    size = 65536
+    idx, vals = table_stream(stream, 65536, size, cuda, seed=7)
+    first, second = (tables.mxu_scatter_stats(size, idx, vals) for _ in range(2))
+    assert torch.equal(first[2], second[2])
+    assert_sums_close(first[0], second[0], first[1])
+    assert_sums_close(first[1], second[1], first[1])
+
+
+def test_table_scatter_call_launches(cuda):
+    from rein48_tpu_torch.utils import profiling
+
+    idx, vals = table_inputs(16384, 65536, cuda)
+    r = profiling.device_breakdown(lambda: tables.mxu_scatter_stats(65536, idx, vals), reps=1, top=8)
+    assert r["launches"] == 2, r  # the zero fill and the kernel
 
 
 def test_table_kernels_reject_bad_inputs(cuda):
@@ -166,21 +197,88 @@ def test_cached_gather_kernel_is_bit_equal(cuda, n):
     assert got.shape == (1, n) and torch.equal(got[0], hbm_tables.cached_gather_reference(table, rm, idx))
 
 
-@pytest.mark.parametrize("n", [1, 16384, 40000])
-@pytest.mark.parametrize("cold_capacity_rows", [16, 1])
-def test_cached_scatter_kernel_matches_plain(cuda, n, cold_capacity_rows):
-    size, k = 16**5, 2048
-    _, hot, idx, err = hot_prefix_inputs(n, size, k, cuda, seed=n + cold_capacity_rows)
+def scatter_stream(stream: str, n: int, k: int, cold_capacity_rows: int, device, seed: int = 0):
+    """``k`` hot rows in random order among 131,072 rows, and ``n`` lookups
+    (8 lanes a row, so entries repeat) with errors of which a share are
+    exact zeros of both signs. "random": about 70% in hot rows;
+    "one-entry": all on one hot entry; "all-cold": none in hot rows;
+    "at-capacity" / "over-capacity": every 16,384-element block has exactly
+    its capacity / one more cold elements."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randperm(1 << 17, generator=g).to(torch.int32)
+    hot, cold_rows = rows[:k], rows[k:]
+
+    def lookups(among):
+        at = among[torch.randint(0, among.numel(), (n,), generator=g)]
+        return at * hbm_tables.ROW + torch.randint(0, 8, (n,), generator=g, dtype=torch.int32)
+
+    in_hot = torch.rand(n, generator=g) < (0.7 if stream == "random" else 0.0 if stream == "all-cold" else 1.0)
+    if stream in ("at-capacity", "over-capacity"):
+        cold = cold_capacity_rows * hbm_tables.ROW + (stream == "over-capacity")
+        for start in range(0, n, hbm_tables.BLOCK):
+            size = min(hbm_tables.BLOCK, n - start)
+            in_hot[start + torch.randperm(size, generator=g)[: min(cold, size)]] = False
+    idx = torch.where(in_hot, lookups(hot), lookups(cold_rows))
+    if stream == "one-entry":
+        idx = torch.full_like(idx, int(hot[k // 2]) * hbm_tables.ROW + 5)
+    err = torch.randn(n, generator=g)
+    err[torch.rand(n, generator=g) < 0.2] = 0.0
+    err[torch.rand(n, generator=g) < 0.05] = -0.0
+    return hot.to(device), idx.to(device), err.to(device)
+
+
+def assert_scatter_matches(got, want):
+    """Sums within the scaled tolerance; hits, residue and counts bit-equal."""
+    assert_sums_close(got[0], want[0], want[1])
+    assert_sums_close(got[1], want[1], want[1])
+    for name, g, w in zip(("hits", "cold_idx", "cold_err", "counts"), got[2:6], want[2:6]):
+        assert torch.equal(g, w), name
+
+
+SCATTER_CASES = [("random", n, 2048, cr) for n in (1, 16384, 40000) for cr in (16, 1)] + [
+    (stream, 40000, k, cr)
+    for stream in ("random", "one-entry", "all-cold", "at-capacity", "over-capacity")
+    # The smallest prefix the network makes, the cached default, the hash's largest, a binary search.
+    for k in (128, 2048, 8192, 16384)
+    for cr in (16, 1)
+]
+
+
+@pytest.mark.parametrize("stream, n, k, cold_capacity_rows", SCATTER_CASES)
+def test_cached_scatter_kernel_matches_plain(cuda, stream, n, k, cold_capacity_rows):
+    hot, idx, err = scatter_stream(stream, n, k, cold_capacity_rows, cuda, seed=n + k + cold_capacity_rows)
     before = dict(hbm_tables.launches)
     got = hbm_tables.cached_scatter_blocks(hot, idx, err, prefix_rows=k, cold_capacity_rows=cold_capacity_rows)
     assert hbm_tables.launches["cached_scatter"] == before["cached_scatter"] + 1
     want = hbm_tables.cached_scatter_stats_reference(hot, idx, err, cold_capacity_rows)
-    assert_sums_close(got[0], want[0], want[1])
-    assert_sums_close(got[1], want[1], want[1])
-    for name, g, w in zip(("hits", "cold_idx", "cold_err", "counts"), got[2:], want[2:]):
-        assert torch.equal(g, w), name
+    assert_scatter_matches(got, want)
     *_, overflow = hbm_tables.cached_scatter_stats(hot, idx, err, prefix_rows=k, cold_capacity_rows=cold_capacity_rows)
+    assert overflow.shape == () and overflow.dtype == torch.bool
     assert bool(overflow) == bool(want[5].max() > cold_capacity_rows * hbm_tables.ROW)
+    if stream == "at-capacity":
+        assert not bool(overflow)
+    if stream == "over-capacity":
+        assert bool(overflow)
+
+
+@pytest.mark.parametrize("stream", ["random", "one-entry", "all-cold", "over-capacity"])
+@pytest.mark.parametrize("k", [2048, 16384])
+def test_cached_scatter_kernel_is_repeatable(cuda, stream, k):
+    hot, idx, err = scatter_stream(stream, 65536, k, 16, cuda, seed=3)
+    first, second = (hbm_tables.cached_scatter_blocks(hot, idx, err, prefix_rows=k) for _ in range(2))
+    for name, a, b in zip(("hits", "cold_idx", "cold_err", "counts"), first[2:], second[2:]):
+        assert torch.equal(a, b), name
+    assert_sums_close(first[0], second[0], first[1])
+    assert_sums_close(first[1], second[1], first[1])
+
+
+@pytest.mark.parametrize("k", [2048, 8192])
+def test_cached_scatter_call_sorts_nothing(cuda, k):
+    from rein48_tpu_torch.utils import profiling
+
+    hot, idx, err = scatter_stream("random", 65536, k, 16, cuda)
+    r = profiling.device_breakdown(lambda: hbm_tables.cached_scatter_stats(hot, idx, err, prefix_rows=k), reps=1, top=8)
+    assert r["launches"] <= 3 and not any("sort" in t["kernel"].lower() for t in r["top"]), r
 
 
 def test_hot_prefix_kernels_reject_bad_inputs(cuda):

@@ -137,11 +137,43 @@ class TestHotPrefixGather:
         np.testing.assert_array_equal(got.numpy().reshape(-1), logical[idx])
 
 
+def lookups(rng, rows: np.ndarray, n: int) -> np.ndarray:
+    """``n`` lookups into ``rows``, 8 lanes a row, so that entries repeat."""
+    return rows[rng.integers(0, rows.size, n)] * ht.ROW + rng.integers(0, 8, n)
+
+
+def exact_cold(rng, hot: np.ndarray, n: int, cold: int) -> np.ndarray:
+    """``n`` lookups of which every 16,384-element block has exactly
+    ``cold`` (or all its) elements outside ``hot``, at random positions."""
+    in_hot = np.ones(n, bool)
+    for start in range(0, n, ht.BLOCK):
+        size = min(ht.BLOCK, n - start)
+        in_hot[start + rng.permutation(size)[: min(cold, size)]] = False
+    cold_rows = np.setdiff1d(np.arange(ROWS), hot)
+    return np.where(in_hot, lookups(rng, hot, n), lookups(rng, cold_rows, n))
+
+
 def scatter_case(name: str):
     """``(hot, idx, err, prefix_rows, cold_capacity_rows)``: errors normal,
     a seventh of them exact zeros and some -0.0, on hot and cold elements."""
     rng = np.random.default_rng(sum(map(ord, name)))
-    if name == "partition":  # one block, no overflow (tests/test_hbm_tables.py:150)
+    if name == "one-entry":  # every element on one hot entry
+        k, cr = 256, 16
+        hot = rng.permutation(ROWS)[:k]
+        idx = np.full(6000, hot[17] * ht.ROW + 9)
+    elif name == "all-cold":  # no element in a hot row; the residue holds them all
+        k, cr = 128, 48
+        hot = rng.permutation(ROWS)[:k]
+        idx = lookups(rng, np.setdiff1d(np.arange(ROWS), hot), 6000)
+    elif name in ("at-capacity", "over-capacity"):  # two blocks, each with capacity (+1) cold elements
+        k, cr = 256, 8
+        hot = rng.permutation(ROWS)[:k]
+        idx = exact_cold(rng, hot, 20000, cr * ht.ROW + (name == "over-capacity"))
+    elif name == "shuffled-hot":  # hot rows in random order, neither sorted nor by heat
+        k, cr = 384, 16
+        hot = rng.permutation(ROWS)[:k]
+        idx = np.where(rng.uniform(size=9000) < 0.8, lookups(rng, hot, 9000), rng.integers(0, SIZE, 9000))
+    elif name == "partition":  # one block, no overflow (tests/test_hbm_tables.py:150)
         _, hot = jax_permutation(integer_heat(rng, 1 << 16), 256)
         idx = np.concatenate([hot[rng.integers(0, 256, 9000)] * ht.ROW + rng.integers(0, ht.ROW, 9000),
                               rng.integers(0, SIZE, 1500)])
@@ -153,7 +185,7 @@ def scatter_case(name: str):
         idx = idx[rng.permutation(idx.size)]
         k, cr = 512, 24
     else:  # overflow (tests/test_hbm_tables.py:195)
-        assert name == "overflow"
+        assert name == "overflow", name
         hot = np.arange(128, dtype=np.int32)
         idx = rng.integers(0, SIZE, 16384)
         k, cr = 128, 2
@@ -175,7 +207,10 @@ def jax_counts(hot, idx, err, k, cr) -> np.ndarray:
 
 
 class TestHotPrefixScatter:
-    @pytest.mark.parametrize("case", ["partition", "three-blocks", "overflow"])
+    @pytest.mark.parametrize(
+        "case",
+        ["partition", "three-blocks", "overflow", "one-entry", "all-cold", "at-capacity", "over-capacity", "shuffled-hot"],
+    )
     def test_matches_jax(self, case):
         hot, idx, err, k, cr = scatter_case(case)
         before = dict(ht.launches)
@@ -193,12 +228,17 @@ class TestHotPrefixScatter:
         np.testing.assert_array_equal(got[2].numpy(), want[2])  # hits
         np.testing.assert_array_equal(got[3].numpy(), want[3])  # cold_idx
         np.testing.assert_array_equal(got[4].numpy(), want[4])  # cold_err, as values
-        assert bool(got[5]) == bool(want[5]) == (case == "overflow")
+        assert bool(got[5]) == bool(want[5]) == (case in ("overflow", "over-capacity"))
         counts = ht.cached_scatter_blocks(t(hot), t(idx), t(err), prefix_rows=k, cold_capacity_rows=cr)[5]
         np.testing.assert_array_equal(counts.numpy(), jax_counts(hot, idx, err, k, cr))
         # The hot sums are those of a scatter-add over the prefix rows.
         member = np.isin(idx >> 7, hot)
-        assert 0 < member.sum() < idx.size and (err[~member] == 0).any()
+        if case == "one-entry":
+            assert member.all()
+        elif case == "all-cold":
+            assert not member.any()
+        else:
+            assert 0 < member.sum() < idx.size and (err[~member] == 0).any()
         slot = np.argsort(hot)[np.searchsorted(np.sort(hot), idx[member] >> 7)]
         np.testing.assert_array_equal(
             got[2].numpy().reshape(-1),

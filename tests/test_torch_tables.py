@@ -100,6 +100,29 @@ class TestScatter:
         # Zeros of either sign are no hits.
         np.testing.assert_array_equal(got[2].numpy(), np.bincount(idx[vals != 0], minlength=size))
 
+    @pytest.mark.parametrize("stream", ["one-entry", "all-zero"])
+    @pytest.mark.parametrize("size", [4096, 65536])
+    def test_stats_edge_streams_match_jax(self, stream, size):
+        # Every element on one entry (the most same-address adds a window can
+        # make), or every value an exact zero of either sign (nothing added,
+        # no hits).
+        rng = np.random.default_rng(5 + size)
+        n = 8192
+        if stream == "one-entry":
+            idx = np.full(n, 77 % size, np.int32)
+            vals = deltas(rng, n)
+        else:
+            idx = colliding_indices(size, n // 8, 6 + size).astype(np.int32)
+            vals = np.where(np.arange(idx.size) % 3 == 0, np.float32(-0.0), np.float32(0.0))
+        got = tables.mxu_scatter_stats(size, torch.from_numpy(idx), torch.from_numpy(vals))
+        want = [np.asarray(w) for w in jtables.mxu_scatter_stats(size, idx, vals)]
+        for name, g, w in zip(("err_sum", "abs_sum"), got, want):
+            np.testing.assert_allclose(g.numpy(), w, rtol=RTOL, atol=ATOL, err_msg=name)
+        np.testing.assert_array_equal(got[2].numpy(), want[2])
+        np.testing.assert_array_equal(got[2].numpy(), np.bincount(idx[vals != 0], minlength=size))
+        if stream == "all-zero":
+            assert not got[2].any() and not got[0].any()
+
     def test_index_shape_is_flattened(self):
         idx = torch.tensor([[0, 5], [5, 127]], dtype=torch.int32)
         vals = torch.tensor([[1.0, 2.0], [3.0, 0.0]])
