@@ -13,8 +13,12 @@ port's main paths through their entry points (the
 the ``SJ_2X4`` n-tuple trainer ``train_ntuple`` in both update modes with
 its depth-0/depth-1 ``evaluate_ntuple``, the ``YEH_4X6`` trainer on the
 ``"cached"`` hot-prefix backend in both update modes with its depth-0
-``evaluate_ntuple``, and ``train --algo ntuple`` of the CLI), checks what
-comes out, and prints one line per phase. Each path runs
+``evaluate_ntuple``, ``train --algo ntuple`` of the CLI, and the deep
+afterstate-TD trainer ``train_afterstate_td`` at its flagship
+configuration with its bf16-against-float32 loss, its checkpoint, ``eval
+--algo search --checkpoint-dir`` of what it trained at depth 0 and 1, and
+``train --algo afterstate`` with a resume), checks what comes out, and
+prints one line per phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -34,6 +38,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -85,6 +90,23 @@ HP_EVAL_ENVS, HP_EVAL_STEPS = 512, 1500
 # |terms|); S = |want| where no term cancels. RTOL, ATOL are the tolerance
 # of tests/test_ntuple.py::TestMXUBackend.
 TABLE_RTOL, TABLE_ATOL = 1e-5, 1e-6
+# The deep afterstate-TD trainer at its flagship configuration
+# (examples/train_afterstate_td_tpu.py:49-60): B=8192, T=32, ResNet 64x4 in
+# bf16, adam at 1e-4 on a cosine over the run's updates to 0.1 of it, gamma
+# 0.997, lambda 0.7, 2 epochs x 4 minibatches of 65,536 boards. The first
+# update is a warm-up (cuDNN picks its algorithms).
+AS_UPDATES = 6
+# One minibatch's loss and gradient norm of the bf16 net on the card
+# against the float32 net on the CPU, relative: values near 14 round to
+# 2**-4 steps in bf16; on the CPU, bf16 against float32 moved the loss by
+# 0.21% and the gradient norm by 0.10% three updates into a run (2,048
+# boards of a B=256 rollout). 2% leaves 10x. The CPU side takes the first
+# AS_BF16_BOARDS boards of the minibatch: a float32 backward of all 65,536
+# would take minutes there.
+LOSS_BF16_RTOL = 0.02
+AS_BF16_BOARDS = 4096
+# eval --algo search --checkpoint-dir: (depth, envs, steps, chance_chunk).
+AS_EVAL = ((0, 1024, 300, None), (1, 256, 200, 4))
 
 
 def log(phase: str, **fields) -> None:
@@ -223,6 +245,22 @@ def close_tables(got, want, scales) -> tuple[bool, float, float]:
         err = max(err, float(d.max()))
         ratio = max(ratio, float((d / (TABLE_ATOL + TABLE_RTOL * sc)).max()))
     return ratio <= 1.0, err, ratio
+
+
+class LegalityCheck:
+    """A policy that counts the actions it chooses that are illegal where a
+    legal one exists (``illegal``, a device scalar)."""
+
+    def __init__(self, policy):
+        self.policy, self.illegal = policy, 0
+
+    def __call__(self, boards):
+        from rein48_tpu_torch.engine import core
+
+        actions = self.policy(boards)
+        legal = core.legal_action_mask(boards)
+        self.illegal = self.illegal + (legal.any(-1) & ~legal.gather(-1, actions[:, None])[:, 0]).sum()
+        return actions
 
 
 class Clock:
@@ -467,7 +505,7 @@ def ntuple_depth1_phase(trained, dev):
     """Depth-1 ``evaluate_ntuple`` with the trained tables, timed after a
     warm-up, and every chosen action legal."""
     from rein48_tpu_torch.agents import ntuple
-    from rein48_tpu_torch.engine import core, vector
+    from rein48_tpu_torch.engine import vector
     from rein48_tpu_torch.ops import tables
     from rein48_tpu_torch.train import evaluate
     from rein48_tpu_torch.train import ntuple as nt
@@ -499,19 +537,11 @@ def ntuple_depth1_phase(trained, dev):
         ms_per_step=[round(1e3 * w / NT_D1_STEPS, 3) for w in walls], stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
 
     policy = nt._get_ntuple_policy(cfg.network_config(dev), 1, 4)
-    bad = torch.zeros((), dtype=torch.int64, device=dev)
-
-    def checked(boards):
-        nonlocal bad
-        actions = policy(trained.params, boards)
-        legal = core.legal_action_mask(boards)
-        bad = bad + (legal.any(-1) & ~legal.gather(-1, actions[:, None])[:, 0]).sum()
-        return actions
-
+    checked = LegalityCheck(lambda boards: policy(trained.params, boards))
     with torch.no_grad():
         evaluate._first_episode_rollout(vector.reset_batch(SEED + 5, NT_D1_ENVS, dev), policy_fn=checked, num_steps=32)
-    log("ntuple/eval-depth1/legal", steps=32, illegal_choices=int(bad))
-    if int(bad):
+    log("ntuple/eval-depth1/legal", steps=32, illegal_choices=int(checked.illegal))
+    if int(checked.illegal):
         raise AssertionError("depth-1 n-tuple planner chose an illegal action")
     return launched
 
@@ -771,15 +801,241 @@ def ntuple_cli_phase(dev):
         raise AssertionError(f"train --algo ntuple failed: {final}")
 
 
-def run_cli(argv) -> dict:
+def run_cli_output(argv) -> tuple[str, str]:
+    """``cli.main(argv)`` in this process: its standard output and error."""
     from rein48_tpu_torch import cli
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(argv)
     if rc != 0:
-        raise RuntimeError(f"cli {argv} returned {rc}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+        raise RuntimeError(f"cli {argv} returned {rc}: {err.getvalue()}")
+    return out.getvalue(), err.getvalue()
+
+
+def run_cli(argv) -> dict:
+    return json.loads(run_cli_output(argv)[0].strip().splitlines()[-1])
+
+
+def kernel_launches() -> dict:
+    """Every launch count of the port's kernels."""
+    from rein48_tpu_torch.engine import fused
+    from rein48_tpu_torch.ops import hbm_tables, tables
+
+    return {"rollout": fused.launches, **tables.launches, **hbm_tables.launches}
+
+
+def afterstate_config():
+    from rein48_tpu_torch.train import afterstate
+
+    return afterstate.AfterstateTDConfig(
+        batch_size=8192, unroll_len=32, model="resnet", gamma=0.997, td_lambda=0.7, learning_rate=1e-4,
+        lr_decay_updates=AS_UPDATES, lr_final_frac=0.1, num_epochs=2, num_minibatches=4,
+    )
+
+
+def batch_loss(step, batch, chunk: int = 65536) -> float:
+    """MSE of the value net over a whole rollout batch."""
+    boards = batch["after_boards"].reshape(-1, 4, 4)
+    targets = batch["targets"].reshape(-1)
+    with torch.no_grad():
+        sq = sum(float(torch.square(step.value(boards[i : i + chunk]) - targets[i : i + chunk]).sum())
+                 for i in range(0, boards.shape[0], chunk))
+    return sq / boards.shape[0]
+
+
+def afterstate_train_phase(dev, ckpt_dir):
+    """``train_afterstate_td`` at the flagship configuration through its entry
+    point (a checkpoint at its last update), then one more update driven by
+    its two phases, with the loss on that update's own batch before and
+    after its learn phase."""
+    from rein48_tpu_torch.train import afterstate
+    from rein48_tpu_torch.utils import flops
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    cfg = afterstate_config()
+    B, T = cfg.batch_size, cfg.unroll_len
+    init = cfg.make_model(torch.Generator().manual_seed(SEED)).state_dict()  # the trainer's init (drawn on the CPU)
+    zero_table_counts()
+    before_launches = kernel_launches()
+    clock = Clock()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, history = afterstate.train_afterstate_td(
+        cfg, AS_UPDATES, seed=SEED, log_every=1, logger=clock,
+        checkpointer=Checkpointer(ckpt_dir, save_every=AS_UPDATES), device=dev,
+    )
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    launched = {k: v - before_launches[k] for k, v in kernel_launches().items()}
+    per_update = clock.per_update_s()  # updates 2..N: the first is the warm-up
+    rates = [B * T / dt for dt in per_update]
+    rate = float(np.median(rates))
+    fwd = flops.model_forward_flops(state.model)
+    per_frame = flops.train_flops_per_frame(fwd, rollout_forwards=4, reuse_passes=cfg.num_epochs)
+    last = history[-1]
+    log(
+        "afterstate/train", B=B, T=T, model="resnet 64x4 bf16", updates=AS_UPDATES, wall_s=round(wall, 3),
+        first_update_s=round(clock.records[0][0] - t0, 3), ms_per_update=[round(1e3 * dt, 3) for dt in per_update],
+        env_steps_per_s=[round(r, 1) for r in rates], env_steps_per_s_median=round(rate, 1),
+        forward_flops_per_board=fwd, model_flops_per_env_step=per_frame,
+        model_tflops_per_s=round(rate * per_frame / 1e12, 3), mfu=round(flops.mfu(rate, per_frame), 5),
+        mfu_peak="989 TFLOP/s bf16 dense (H100 SXM data sheet)", peak_gib=round(peak_gib, 3),
+        kernel_launches=json.dumps(launched),
+        **{k: round(last[k], 5) for k in ("loss", "v_mean", "target_mean", "grad_norm", "avg_episode_tile_sum", "best_tile")},
+    )
+    if not all(np.isfinite(v) for r in history for v in r.values()) or len(history) != AS_UPDATES:
+        raise AssertionError(f"train_afterstate_td records not finite: {history}")
+    moved = any(not torch.equal(v.cpu(), init[k]) for k, v in state.model.state_dict().items())
+    if not moved:
+        raise AssertionError("train_afterstate_td did not move the parameters")
+
+    step = afterstate.make_afterstate_td_step(cfg, state.model, state.optimizer)
+    env, batch, rollout_metrics = step.rollout(state)
+    loss_before = batch_loss(step, batch)
+    metrics = step.learn(state, batch)
+    loss_after = batch_loss(step, batch)
+    state = dataclasses.replace(state, env=env, update_step=state.update_step + 1)
+    env_steps = batch["targets"].numel()
+    finite = all(np.isfinite(float(v)) for v in {**metrics, **rollout_metrics}.values())
+    log("afterstate/train/last-update", update=state.update_step, env_steps=env_steps,
+        loss_on_own_batch_before=round(loss_before, 5), loss_on_own_batch_after=round(loss_after, 5),
+        minibatch_loss=round(float(metrics["loss"]), 5), grad_norm=round(float(metrics["grad_norm"]), 5), finite=finite)
+    if env_steps != B * T or not finite:
+        raise AssertionError(f"the last update ran {env_steps} env steps, metrics {metrics}")
+    if not loss_after < loss_before:
+        raise AssertionError(f"the learn phase did not lower the loss on its own batch: {loss_before} -> {loss_after}")
+    return state, cfg, step, batch
+
+
+def afterstate_bf16_phase(state, cfg, step, batch):
+    """One minibatch's loss and gradient norm: the bf16 net on the card
+    against the same weights as a float32 net on the CPU."""
+    from rein48_tpu_torch.models import nets
+    from rein48_tpu_torch.train import afterstate, common
+
+    perm = step.permutations(torch.Generator(device=batch["targets"].device).manual_seed(SEED), batch["targets"].device)
+    boards, targets = (x[0][:AS_BF16_BOARDS] for x in step.minibatches(batch, perm))
+    f32 = nets.ResNetPolicy(64, 4, dtype=torch.float32)
+    f32.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
+    out = {}
+    for name, model, b, t in (("card_bf16", state.model, boards, targets), ("cpu_f32", f32, boards.cpu(), targets.cpu())):
+        v = afterstate.make_value_fn(cfg, model)(b)
+        loss = torch.mean(torch.square(v - t))
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+        out[name] = (float(loss.detach()), float(common.tree_norm(grads)))
+    (lc, gc), (lf, gf) = out["card_bf16"], out["cpu_f32"]
+    rel_loss, rel_grad = abs(lc - lf) / lf, abs(gc - gf) / gf
+    log("afterstate/bf16-vs-f32", boards=AS_BF16_BOARDS, loss_card=round(lc, 6), loss_cpu_f32=round(lf, 6),
+        grad_norm_card=round(gc, 6), grad_norm_cpu_f32=round(gf, 6), rel_err_loss=f"{rel_loss:.3g}",
+        rel_err_grad_norm=f"{rel_grad:.3g}", rtol=LOSS_BF16_RTOL)
+    if not (rel_loss <= LOSS_BF16_RTOL and rel_grad <= LOSS_BF16_RTOL):
+        raise AssertionError("the bf16 loss or gradient norm on the card disagrees with the float32 net")
+
+
+def afterstate_checkpoint_phase(state, cfg, ckpt_dir, dev):
+    """Save the trained state, restore it into an init from another seed:
+    every tensor, the optimizer, the env counters and the generator equal
+    bit for bit, and the next rollout gives the same boards from both."""
+    from rein48_tpu_torch.train import afterstate
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    ck = Checkpointer(ckpt_dir)
+    t0 = time.perf_counter()
+    ck.save(state.update_step, state)
+    save_s = time.perf_counter() - t0
+    step_dir = Path(ckpt_dir) / str(state.update_step)
+    size = sum(f.stat().st_size for f in step_dir.iterdir())
+    other = afterstate.init_afterstate_td(cfg, SEED + 1, dev)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ck.restore(other)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    equal = {
+        "params": all(torch.equal(a, b) for a, b in zip(state.model.state_dict().values(), restored.model.state_dict().values())),
+        "optimizer": restored.optimizer.count == state.optimizer.count and all(
+            torch.equal(a, b) for m in state.optimizer.moments
+            for a, b in zip(state.optimizer.moments[m], restored.optimizer.moments[m])
+        ),
+        "env": all(torch.equal(getattr(state.env, f.name), getattr(restored.env, f.name))
+                   for f in dataclasses.fields(state.env)),
+        "generator": torch.equal(state.generator.get_state(), restored.generator.get_state()),
+        "update_step": restored.update_step == state.update_step,
+    }
+    boards = [afterstate.make_afterstate_td_step(cfg, s.model, s.optimizer).rollout(s)[1]["after_boards"] for s in (state, restored)]
+    equal["next_rollout"] = bool(torch.equal(*boards))
+    log("afterstate/checkpoint", step=state.update_step, save_s=round(save_s, 4), restore_s=round(restore_s, 4),
+        bytes_on_disk=size, equal=json.dumps(equal))
+    if not all(equal.values()):
+        raise AssertionError(f"the restored afterstate state differs: {equal}")
+
+
+def afterstate_eval_phase(cfg, ckpt_dir, dev):
+    """``eval --algo search --checkpoint-dir`` through the CLI at depth 0 and
+    1 (first-episode protocol): the stats equal ``evaluate_search`` called
+    directly with the saved gamma and reward transform, and every chosen
+    action is legal."""
+    from rein48_tpu_torch.engine import vector
+    from rein48_tpu_torch.models import nets
+    from rein48_tpu_torch.train import evaluate
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    ck = Checkpointer(ckpt_dir)
+    model = nets.make_model("resnet")
+    model.load_state_dict(ck.restore_field("model"))
+    model = model.to(dev).eval()
+    for depth, envs, steps, chunk in AS_EVAL:
+        argv = ["eval", "--algo", "search", "--checkpoint-dir", ckpt_dir, "--depth", str(depth), "--num-envs", str(envs),
+                "--max-steps", str(steps), "--protocol", "first", "--seed", str(SEED)]
+        argv += ["--chance-chunk", str(chunk)] if chunk else []
+        zero_table_counts()
+        t0 = time.perf_counter()
+        out, err = run_cli_output(argv)
+        wall = time.perf_counter() - t0
+        stats = json.loads(out.strip().splitlines()[-1])
+        leaf = json.loads(err.split("value leaf ", 1)[1].splitlines()[0])
+        want = evaluate.evaluate_search(
+            depth=depth, num_envs=envs, num_steps=steps, seed=SEED, model=model, gamma=cfg.gamma,
+            reward_transform=cfg.reward_transform, chance_chunk=chunk, protocol="first", device=dev,
+        )
+        checked = LegalityCheck(evaluate._build_search_policy(depth, model, "onehot", cfg.gamma, cfg.reward_transform, chunk))
+        with torch.inference_mode():
+            evaluate._first_episode_rollout(vector.reset_batch(SEED, envs, dev), policy_fn=checked, num_steps=32)
+        log(f"afterstate/eval-depth{depth}", envs=envs, steps=steps, chance_chunk=chunk, wall_s=round(wall, 3),
+            ms_per_step=round(1e3 * wall / steps, 3), leaf=json.dumps(leaf), equal_to_evaluate_search=stats == want,
+            illegal_choices=int(checked.illegal), stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+        if leaf["gamma"] != cfg.gamma or leaf["reward_transform"] != cfg.reward_transform:
+            raise AssertionError(f"eval did not take the saved settings: {leaf}")
+        if stats != want or int(checked.illegal) or stats["episodes"] != envs:
+            raise AssertionError(f"eval --checkpoint-dir at depth {depth}: {stats} against {want}, {int(checked.illegal)} illegal")
+
+
+def afterstate_cli_phase():
+    """``train --algo afterstate --checkpoint-dir`` at the CLI's defaults
+    (B=4096, T=32, ResNet 64x4, lr 3e-4) for 2 updates, then again for 2
+    more, which resumes; then ``eval --depth 1`` of what it saved."""
+    with tempfile.TemporaryDirectory() as d:
+        base = ["train", "--algo", "afterstate", "--checkpoint-dir", d, "--checkpoint-every", "2", "--log-every", "1",
+                "--seed", str(SEED), "--updates", "2"]
+        t0 = time.perf_counter()
+        _, err1 = run_cli_output(base)
+        out2, err2 = run_cli_output(base)
+        wall = time.perf_counter() - t0
+        finals = [ast.literal_eval(e.split("final: ", 1)[1].strip()) for e in (err1, err2)]
+        resumed = "resumed from checkpoint step 2" in out2
+        out, err = run_cli_output(["eval", "--algo", "search", "--checkpoint-dir", d, "--depth", "1", "--num-envs", "64",
+                                   "--max-steps", "16", "--chance-chunk", "4", "--protocol", "first"])
+        stats = json.loads(out.strip().splitlines()[-1])
+        leaf = json.loads(err.split("value leaf ", 1)[1].splitlines()[0])
+        log("afterstate/cli", argv=" ".join(base).replace(d, "<tmpdir>"), wall_s=round(wall, 3), resumed=resumed,
+            updates=[f["update"] for f in finals], steps_per_sec=[round(f["steps_per_sec"], 1) for f in finals],
+            loss=[round(f["loss"], 5) for f in finals], eval_depth1_leaf=json.dumps(leaf),
+            eval_depth1_avg_score=round(stats["avg_score"], 3))
+        if not resumed or [f["update"] for f in finals] != [2, 4] or leaf["gamma"] != 0.997:
+            raise AssertionError(f"train --algo afterstate did not resume or eval took other settings: {finals} {leaf}")
+        if not all(np.isfinite(v) for f in finals for v in f.values()) or not all(np.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"train/eval --algo afterstate gave non-finite values: {finals} {stats}")
 
 
 def main() -> int:
@@ -788,7 +1044,7 @@ def main() -> int:
         return 1
     from rein48_tpu_torch import build
     from rein48_tpu_torch.control import search
-    from rein48_tpu_torch.engine import core, fused, philox, vector
+    from rein48_tpu_torch.engine import fused, philox, vector
     from rein48_tpu_torch.models import nets
     from rein48_tpu_torch.train import common, evaluate
 
@@ -875,20 +1131,11 @@ def main() -> int:
     # Every chosen action is legal wherever one exists (64 steps replayed
     # through the same policy and sweep that evaluate_search runs).
     for depth, cfg in serving.items():
-        policy = evaluate._build_search_policy(depth, model, "onehot", 0.99, "log2", cfg["chunk"])
-        bad = torch.zeros((), dtype=torch.int64, device=dev)
-
-        def checked(boards, policy=policy):
-            nonlocal bad
-            actions = policy(boards)
-            legal = core.legal_action_mask(boards)
-            bad = bad + (legal.any(-1) & ~legal.gather(-1, actions[:, None])[:, 0]).sum()
-            return actions
-
+        checked = LegalityCheck(evaluate._build_search_policy(depth, model, "onehot", 0.99, "log2", cfg["chunk"]))
         with torch.inference_mode():
             evaluate._first_episode_rollout(vector.reset_batch(123, cfg["envs"], dev), policy_fn=checked, num_steps=64)
-        log(f"serve/depth{depth}/legal", steps=64, illegal_choices=int(bad))
-        if int(bad):
+        log(f"serve/depth{depth}/legal", steps=64, illegal_choices=int(checked.illegal))
+        if int(checked.illegal):
             raise AssertionError(f"depth-{depth} planner chose an illegal action")
 
     # Depth-1 q on the card (bf16) against the float32 net on the CPU.
@@ -990,6 +1237,18 @@ def main() -> int:
     for k, v in {**table_launches, **hp_launches}.items():
         if v <= 0:
             raise AssertionError(f"the n-tuple main paths launched no {k} kernel")
+    # 16-20. The deep afterstate-TD trainer at its flagship configuration
+    # through its entry point, the bf16 net against float32, its checkpoint,
+    # search with the trained value net at the leaves, and the CLI. This path runs
+    # no kernel of the port (cuDNN and cuBLAS do its dense work).
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        state, cfg, step, batch = afterstate_train_phase(dev, ckpt_dir)
+        afterstate_bf16_phase(state, cfg, step, batch)
+        del step, batch
+        afterstate_checkpoint_phase(state, cfg, ckpt_dir, dev)
+        del state
+        afterstate_eval_phase(cfg, ckpt_dir, dev)
+    afterstate_cli_phase()
     g, sc = gather["value(afterstates)"], scatter[("stats", NT_B * 2 * 8)]
     sc_big, hp_over = scatter[("stats", NT_B * 2 * 8 * 4)], hp_scatter["overflowing"]
     hp_scatter = hp_scatter["just-refreshed"]

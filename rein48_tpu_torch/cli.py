@@ -3,12 +3,16 @@
 """Command-line interface of the port (counterpart of ``rein48_tpu/cli.py``).
 
     python -m rein48_tpu_torch bench --batch 65536 --unroll 2048
-    python -m rein48_tpu_torch eval --algo search --depth 1 --num-envs 256
-    python -m rein48_tpu_torch train --algo ntuple --updates 200
+    python -m rein48_tpu_torch train --algo afterstate --updates 200 --checkpoint-dir ckpt/as
+    python -m rein48_tpu_torch eval --algo search --depth 1 --checkpoint-dir ckpt/as
+    python -m rein48_tpu_torch train --algo ntuple --updates 200 --checkpoint-dir ckpt/nt
+    python -m rein48_tpu_torch eval --algo ntuple --depth 0 --checkpoint-dir ckpt/nt
 
-Ported so far: ``bench``, ``eval --algo search`` and ``train --algo
-ntuple``. The other subcommands, algorithms and flags exist with the JAX
-CLI's names and say that they are not yet ported. The table backend
+Ported so far: ``bench``, ``train --algo afterstate|ntuple`` (with
+checkpoints and resume) and ``eval --algo search|ntuple``, where ``search``
+plays the snake heuristic or, with ``--checkpoint-dir``, the trained value
+net at its leaves. The other subcommands, algorithms and flags exist with
+the JAX CLI's names and say that they are not yet ported. The table backend
 ``torch`` is the JAX CLI's ``xla``. Everything runs on ``cuda`` unless
 ``--device cpu`` is given.
 """
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -35,30 +40,40 @@ def _not_ported(what: str):
 
 
 def _cmd_train(args: argparse.Namespace) -> int:
-    if args.algo != "ntuple":
+    if args.algo not in ("afterstate", "ntuple"):
         raise SystemExit(f"train --algo {args.algo} is not yet ported to rein48_tpu_torch")
-    for flag in ("mesh", "parity", "checkpoint_dir"):
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f"train --{flag.replace('_', '-')} is not yet ported to rein48_tpu_torch")
-    from rein48_tpu_torch.train.ntuple import NTupleTrainConfig, train_ntuple
+    for flag in ("mesh", "parity"):
+        if getattr(args, flag):
+            raise SystemExit(f"train --{flag} is not yet ported to rein48_tpu_torch")
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
     from rein48_tpu_torch.utils.metrics import MetricLogger
 
-    kwargs = {} if args.alpha is None else {"alpha": args.alpha}
-    if args.delay_window is not None:
-        # 0 is a whole-update window (None); unset keeps the trainer's default.
-        kwargs["delay_window"] = args.delay_window or None
-    config = NTupleTrainConfig(
-        batch_size=args.batch_size,
-        steps_per_update=args.unroll,
-        update_mode=args.update_mode,
-        table_backend=args.table_backend,
-        **kwargs,
-    )
+    ckpt = Checkpointer(args.checkpoint_dir, save_every=args.checkpoint_every) if args.checkpoint_dir else None
     logger = MetricLogger(log_dir=args.log_dir)
+    run = dict(num_updates=args.updates, seed=args.seed, log_every=args.log_every, logger=logger, checkpointer=ckpt, device=args.device)
     try:
-        _, history = train_ntuple(
-            config, num_updates=args.updates, seed=args.seed, log_every=args.log_every, logger=logger, device=args.device
-        )
+        if args.algo == "afterstate":
+            from rein48_tpu_torch.train.afterstate import AfterstateTDConfig, train_afterstate_td
+
+            config = AfterstateTDConfig(
+                batch_size=args.batch_size, unroll_len=args.unroll, model=args.model, learning_rate=args.lr
+            )
+            _, history = train_afterstate_td(config, **run)
+        else:
+            from rein48_tpu_torch.train.ntuple import NTupleTrainConfig, train_ntuple
+
+            kwargs = {} if args.alpha is None else {"alpha": args.alpha}
+            if args.delay_window is not None:
+                # 0 is a whole-update window (None); unset keeps the trainer's default.
+                kwargs["delay_window"] = args.delay_window or None
+            config = NTupleTrainConfig(
+                batch_size=args.batch_size,
+                steps_per_update=args.unroll,
+                update_mode=args.update_mode,
+                table_backend=args.table_backend,
+                **kwargs,
+            )
+            _, history = train_ntuple(config, **run)
     finally:
         logger.close()
     if history:
@@ -66,23 +81,82 @@ def _cmd_train(args: argparse.Namespace) -> int:
     return 0
 
 
+def _model_kwargs(saved: dict) -> dict:
+    """``model_kwargs`` of a saved afterstate config (pairs as JSON lists;
+    a dtype saved as its ``str``, e.g. ``"torch.float32"``)."""
+    import torch
+
+    out = {}
+    for key, value in saved.get("model_kwargs", ()):
+        if key == "dtype" and isinstance(value, str):
+            value = getattr(torch, value.rsplit(".", 1)[-1])
+        out[key] = value
+    return out
+
+
 def _cmd_eval(args: argparse.Namespace) -> int:
-    if args.algo != "search":
+    if args.algo not in ("search", "ntuple"):
         raise SystemExit(f"eval --algo {args.algo} is not yet ported to rein48_tpu_torch")
-    # These flags set up a checkpoint's critic leaf; without a checkpoint
-    # the planner's leaf is the snake heuristic, as in the JAX CLI.
-    for flag in ("checkpoint_dir", "model", "obs_encoding", "gamma", "reward_transform", "sample"):
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f"eval --{flag.replace('_', '-')} is not yet ported to rein48_tpu_torch")
+    if args.sample:
+        raise SystemExit("eval --sample is not yet ported to rein48_tpu_torch")
+    from rein48_tpu_torch.device import resolve_device
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    device = resolve_device(args.device)
+    # Settings resolve as in the JAX CLI: a flag, else the config saved with
+    # the checkpoint, else the trainer's default. A value leaf must be
+    # searched in the units (gamma, reward transform) it was trained in.
+    if args.checkpoint_dir and not os.path.isdir(args.checkpoint_dir):
+        raise SystemExit(f"no checkpoint directory {args.checkpoint_dir}")
+    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    saved = (ckpt.load_config() or {}) if ckpt is not None else {}
+
+    def setting(flag_value, key, default):
+        return flag_value if flag_value is not None else saved.get(key, default)
+
+    eval_kw = dict(
+        depth=args.depth, num_envs=args.num_envs, num_steps=args.max_steps, seed=args.seed,
+        protocol=args.protocol, chance_chunk=args.chance_chunk, device=device,
+    )
+    if args.algo == "ntuple":
+        from rein48_tpu_torch.agents.ntuple import YEH_4X6
+        from rein48_tpu_torch.train.ntuple import NTupleTrainConfig, evaluate_ntuple
+
+        if ckpt is None:
+            raise SystemExit("eval --algo ntuple needs --checkpoint-dir")
+        config = NTupleTrainConfig(
+            tuples=tuple(tuple(int(c) for c in t) for t in saved.get("tuples", YEH_4X6)),
+            symmetric=saved.get("symmetric", True),
+            table_backend=saved.get("table_backend", "auto"),
+            cache_prefix_rows=saved.get("cache_prefix_rows", NTupleTrainConfig.cache_prefix_rows),
+        )
+        params = {k: v.to(device) for k, v in ckpt.restore_field("params").items()}
+        print(f"restored step {ckpt.latest_step()}", file=sys.stderr)
+        stats = evaluate_ntuple(params, config, **eval_kw)
+        print(json.dumps(stats))
+        return 0
+
     from rein48_tpu_torch.train.evaluate import evaluate_search
 
-    stats = evaluate_search(
-        depth=args.depth,
-        num_envs=args.num_envs,
-        num_steps=args.max_steps,
-        seed=args.seed,
-        device=args.device,
-    )
+    if ckpt is None:
+        # Without a checkpoint the leaf is the snake heuristic, which has no
+        # critic units to set.
+        for flag in ("model", "obs_encoding", "gamma", "reward_transform"):
+            if getattr(args, flag) is not None:
+                raise SystemExit(f"eval --{flag.replace('_', '-')} needs --checkpoint-dir")
+    else:
+        from rein48_tpu_torch.models import nets
+
+        model = nets.make_model(setting(args.model, "model", "resnet"), **_model_kwargs(saved))
+        model.load_state_dict(ckpt.restore_field("model"))
+        leaf = dict(
+            obs_encoding=setting(args.obs_encoding, "obs_encoding", "onehot"),
+            gamma=setting(args.gamma, "gamma", 0.99),
+            reward_transform=setting(args.reward_transform, "reward_transform", "log2"),
+        )
+        eval_kw.update(model=model.to(device).eval(), **leaf)
+        print(f"restored step {ckpt.latest_step()}; value leaf {json.dumps(leaf)}", file=sys.stderr)
+    stats = evaluate_search(**eval_kw)
     print(json.dumps(stats))
     return 0
 
@@ -148,11 +222,13 @@ def build_parser() -> argparse.ArgumentParser:
     for name in ("play", "parity"):
         sub.add_parser(name, help=f"{name} (not yet ported)").set_defaults(fn=_not_ported(name))
 
-    pt = sub.add_parser("train", help="train an agent (ported: --algo ntuple)")
+    pt = sub.add_parser("train", help="train an agent (ported: --algo afterstate, ntuple)")
     pt.add_argument("--algo", choices=("a3c", "ppo", "dqn", "ddpg", "ntuple", "afterstate"), default="a3c")
+    pt.add_argument("--model", default="resnet", help="--algo afterstate: the value net")
     pt.add_argument("--updates", type=int, default=200)
     pt.add_argument("--batch-size", type=int, default=4096)
     pt.add_argument("--unroll", type=int, default=32)
+    pt.add_argument("--lr", type=float, default=3e-4, help="--algo afterstate: learning rate")
     pt.add_argument("--alpha", type=float, default=None, help="TD learning rate (default: the trainer's)")
     pt.add_argument("--update-mode", choices=("step", "delayed"), default="step")
     pt.add_argument(
@@ -169,21 +245,28 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--parity", action="store_true", help="not yet ported")
     pt.add_argument("--log-dir", default=None)
     pt.add_argument("--log-every", type=int, default=10)
-    pt.add_argument("--checkpoint-dir", default=None, help="not yet ported")
+    pt.add_argument("--checkpoint-dir", default=None, help="save here, and resume from the latest checkpoint here")
+    pt.add_argument("--checkpoint-every", type=int, default=100, help="save at the logged updates this divides")
     pt.add_argument("--device", default=None, help="cuda (default) or cpu")
     pt.set_defaults(fn=_cmd_train)
 
-    pe = sub.add_parser("eval", help="evaluate the expectimax planner")
+    pe = sub.add_parser("eval", help="evaluate the expectimax planner or n-tuple tables")
     pe.add_argument("--algo", choices=("a3c", "ppo", "dqn", "search", "ntuple"), default="a3c")
+    # None: the config saved with the checkpoint decides, then the default.
     pe.add_argument("--model", default=None)
     pe.add_argument("--obs-encoding", default=None, choices=("onehot", "raw", "log2"))
     pe.add_argument("--gamma", type=float, default=None)
     pe.add_argument("--reward-transform", default=None)
-    pe.add_argument("--depth", type=int, default=1, help="expectimax depth")
-    pe.add_argument("--checkpoint-dir", default=None)
+    pe.add_argument("--depth", type=int, default=1, help="expectimax depth (ntuple depth 0: the greedy afterstate policy)")
+    pe.add_argument("--checkpoint-dir", default=None, help="search: a value-net leaf from an afterstate checkpoint")
     pe.add_argument("--num-envs", type=int, default=512)
     pe.add_argument("--max-steps", type=int, default=4096)
     pe.add_argument("--seed", type=int, default=0)
+    pe.add_argument(
+        "--protocol", choices=("window", "first"), default="window",
+        help="window: episodes finished within the sweep; first: each env's first episode",
+    )
+    pe.add_argument("--chance-chunk", type=int, default=None, help="chance children per leaf batch (divides 32)")
     pe.add_argument("--sample", action="store_true", help="sample instead of greedy")
     pe.add_argument("--device", default=None, help="cuda (default) or cpu")
     pe.set_defaults(fn=_cmd_eval)

@@ -9,6 +9,9 @@ The inputs are the JAX parameters with their leaves as numpy arrays
   dense kernels from ``[in, out]`` to ``[out, in]``. The port's heads
   flatten channels last in the same (h, w, c) order as Flax, so no dense
   weight is permuted.
+* Afterstate-TD trainer state: the ``ResNetPolicy`` parameters as above,
+  and optax Adam's ``mu``/``nu`` (trees shaped as the parameters, so they
+  map the same way) and ``count`` into the port's optimizer.
 * N-tuple tables: the same keys and flat float32 tables. The ``"cached"``
   backend's permutation state comes across as int32 beside them:
   ``t{i}_rm``, one physical row per logical row of 128 entries (a
@@ -68,6 +71,26 @@ def resnet_from_flax(params, dtype=torch.bfloat16) -> ResNetPolicy:
     model = ResNetPolicy(channels=channels, num_blocks=num_blocks, dtype=dtype)
     model.load_state_dict(params_from_flax(params))
     return model
+
+
+def afterstate_state_from_jax(state, params, *, mu=None, nu=None, count=None):
+    """Load a JAX ``AfterstateTDState``'s parameters, and optionally its
+    optax Adam state, into the port's ``AfterstateTDState`` ``state``.
+
+    ``params``, ``mu`` and ``nu`` are Flax trees with numpy leaves and
+    ``count`` the Adam step count (``opt_state[1][0]`` of the JAX trainer's
+    ``chain(clip, adam)``); ``state``'s optimizer must be ``adam`` or
+    ``adamw``. The tensors are copied onto ``state``'s device; the env and
+    the generator are left as they are. Returns ``state``.
+    """
+    state.model.load_state_dict(params_from_flax(params))
+    if mu is not None:
+        names = [n for n, _ in state.model.named_parameters()]
+        moments = {"mu": params_from_flax(mu), "nu": params_from_flax(nu)}
+        state.optimizer.load_state_dict(
+            {"name": state.optimizer.name, "count": int(count), **{m: [t[n] for n in names] for m, t in moments.items()}}
+        )
+    return state
 
 
 _NTUPLE_KEY = re.compile(r"t(\d+)(_E|_A|_rm|_hot)?")

@@ -1,12 +1,23 @@
 # Copyright 2026 The rein48-tpu Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Observation and reward transforms (port of part of ``train/common.py``).
+"""Training-loop plumbing: observation/reward transforms, optimizers
+(port of ``train/common.py``).
 
-``make_optimizer`` waits for the trainer slice.
+The optimizers are written out to optax's formulas rather than taken from
+``torch.optim``, where the two differ: the global-norm clip leaves a
+gradient untouched below ``max_norm`` and otherwise scales it by
+``max_norm / norm`` (``torch.nn.utils.clip_grad_norm_`` always scales by
+``max_norm / (norm + 1e-6)``), and RMSprop adds eps inside the square root
+(``torch.optim.RMSprop`` adds it outside). Every step runs on the device
+of the parameters and reads nothing back to the host.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Callable, Sequence
+
+import numpy as np
 import torch
 
 from rein48_tpu_torch.models import obs as obs_lib
@@ -16,6 +27,12 @@ OBS_ENCODERS = {
     "raw": obs_lib.encode_raw,
     "log2": obs_lib.encode_log2_scalar,
 }
+
+OPTIMIZERS = ("adam", "adamw", "sgd", "rmsprop")
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+ADAMW_WEIGHT_DECAY = 1e-4
+# The reference A3C's tf.train.RMSPropOptimizer defaults.
+RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-10
 
 
 def encode_obs(boards: torch.Tensor, encoding: str) -> torch.Tensor:
@@ -36,3 +53,110 @@ def transform_reward(reward: torch.Tensor, transform: str) -> torch.Tensor:
     if transform == "scaled":
         return reward / 256.0
     raise ValueError(f"unknown reward transform '{transform}'")
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``: ``count -> lr``, the full ``init_value``
+    at count 0, held at ``alpha * init_value`` from ``decay_steps`` on."""
+    if not decay_steps > 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got decay_steps={decay_steps}.")
+
+    def schedule(count: int) -> float:
+        decay = 0.5 * (1.0 + math.cos(math.pi * min(count, decay_steps) / decay_steps))
+        return init_value * ((1.0 - alpha) * decay + alpha)
+
+    return schedule
+
+
+def tree_norm(tensors: Sequence[torch.Tensor | None]) -> torch.Tensor:
+    """Global L2 norm over tensors (``None`` counts as zeros), as ``optax.global_norm``."""
+    return torch.sqrt(sum(torch.sum(t * t) for t in tensors if t is not None))
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    # optax computes 1 - decay**count in float32.
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+class Optimizer:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), <name>)`` over a
+    fixed list of parameters, updating them in place.
+
+    ``count`` (the updates taken, a host int) indexes the learning-rate
+    schedule before its increment, as optax's ``scale_by_schedule`` does.
+    The moments ``mu``/``nu`` are float32 tensors beside the parameters,
+    zero at the start. :meth:`state_dict` and :meth:`load_state_dict` carry
+    the whole state (a checkpoint or another device).
+    """
+
+    def __init__(self, name: str, learning_rate, params: Sequence[torch.Tensor], *, max_grad_norm: float | None):
+        if name not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer '{name}'")
+        self.name, self.learning_rate, self.max_grad_norm = name, learning_rate, max_grad_norm
+        self.params = list(params)
+        self.count = 0
+        moments = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"), "rmsprop": ("nu",), "sgd": ()}[name]
+        self.moments = {m: [torch.zeros_like(p, memory_format=torch.preserve_format) for p in self.params] for m in moments}
+
+    def lr(self) -> float:
+        """The learning rate of the next step."""
+        return self.learning_rate(self.count) if callable(self.learning_rate) else self.learning_rate
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor | None]) -> None:
+        """One update from ``grads`` (aligned with ``params``; ``None`` is zero)."""
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+        if self.max_grad_norm is not None:
+            norm = tree_norm(grads)
+            keep = norm < self.max_grad_norm
+            grads = [torch.where(keep, g, (g / norm) * self.max_grad_norm) for g in grads]
+        neg_lr = -self.lr()
+        count = self.count + 1
+        if self.name in ("adam", "adamw"):
+            bc1, bc2 = _bias_correction(ADAM_B1, count), _bias_correction(ADAM_B2, count)
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            if self.name in ("adam", "adamw"):
+                mu, nu = self.moments["mu"][i], self.moments["nu"][i]
+                mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
+                nu.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+                if self.name == "adamw":
+                    u = u + ADAMW_WEIGHT_DECAY * p
+            elif self.name == "rmsprop":
+                nu = self.moments["nu"][i]
+                nu.copy_((1 - RMSPROP_DECAY) * (g * g) + RMSPROP_DECAY * nu)
+                u = torch.rsqrt(nu + RMSPROP_EPS) * g
+            else:
+                u = g
+            p.add_(u * neg_lr)
+        self.count = count
+
+    def state_dict(self) -> dict:
+        return {"name": self.name, "count": self.count, **{m: [t.detach().cpu() for t in ts] for m, ts in self.moments.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state["name"] != self.name or set(state) - {"name", "count"} != set(self.moments):
+            raise ValueError(f"optimizer state of '{state['name']}' cannot load into '{self.name}'")
+        for m, ts in self.moments.items():
+            if len(state[m]) != len(ts) or any(a.shape != b.shape for a, b in zip(state[m], ts)):
+                raise ValueError(f"optimizer state '{m}' does not match the parameters")
+            for dst, src in zip(ts, state[m]):
+                dst.copy_(src)
+        self.count = int(state["count"])
+
+
+def make_optimizer(
+    name: str, learning_rate: float | Callable[[int], float], params: Sequence[torch.Tensor], *, max_grad_norm: float | None = 1.0
+) -> Optimizer:
+    """Optimizer factory with the JAX package's choices.
+
+    ``rmsprop``: decay 0.9, eps 1e-10 inside the root (the reference A3C's
+    RMSProp); ``adam``: b1 0.9, b2 0.999, eps 1e-8 outside the root, bias
+    corrected; ``adamw``: adam plus weight decay 1e-4 on every parameter;
+    ``sgd``: plain. Each behind the global-norm clip unless
+    ``max_grad_norm`` is None. ``learning_rate`` is a float or a schedule
+    ``count -> lr``.
+    """
+    return Optimizer(name, learning_rate, params, max_grad_norm=max_grad_norm)

@@ -12,8 +12,7 @@ The JAX ``lax.scan`` over the steps of an update is a Python loop here,
 and the tables are updated in place. Acting draws its spawns from the
 engine's Philox streams (``engine/vector.py``). On a card the ``"mxu"``
 backend runs the table kernels of ``ops/tables.py`` and the ``"cached"``
-backend those of ``ops/hbm_tables.py``. ``mesh`` and ``checkpointer`` are
-not yet ported.
+backend those of ``ops/hbm_tables.py``. ``mesh`` is not yet ported.
 """
 
 from __future__ import annotations
@@ -245,22 +244,28 @@ def train_ntuple(
     update, whose time includes building the kernels. With ``"cached"``
     the permutation is derived before the first update and after every
     ``cache_refresh_every``-th, as in JAX; the state then holds the new
-    tables.
+    tables. With a ``checkpointer`` the config is saved, the latest
+    checkpoint resumed, and the state saved at the logging points that
+    ``save_every`` divides, as in JAX.
     """
     if mesh is not None:
         raise NotImplementedError("train_ntuple(mesh=...) is not yet ported to rein48_tpu_torch")
-    if checkpointer is not None:
-        raise NotImplementedError("train_ntuple(checkpointer=...) is not yet ported to rein48_tpu_torch")
     device = resolve_device(device)
     state, net = init_ntuple(config, seed, device)
+    if checkpointer is not None:
+        checkpointer.save_config(config)
+    if checkpointer is not None and checkpointer.latest_step() is not None:
+        state = checkpointer.restore(state)
+        print(f"resumed from checkpoint step {state.update_step}", flush=True)
     step = make_ntuple_step(config, device)
     cached = net.config.backend == "cached"
     if cached:
-        # On a fresh init every row's heat is 0, so this fronts the lowest
-        # rows; the dense fallback of an overflowing window stays exact
-        # until the next refresh sees real heat.
+        # After a resume the heat is real; on a fresh init every row's heat
+        # is 0, so this fronts the lowest rows, and the dense fallback of an
+        # overflowing window stays exact until the next refresh.
         state = dataclasses.replace(state, params=net.refresh_cache(state.params))
     history = []
+    base = state.update_step
     t0 = time.perf_counter()
     for i in range(num_updates):
         state, metrics = step(state)
@@ -283,6 +288,8 @@ def train_ntuple(
             history.append(record)
             if logger is not None:
                 logger.write(record)
+            if checkpointer is not None:
+                checkpointer.maybe_save(base + i + 1, state)
     return state, history
 
 

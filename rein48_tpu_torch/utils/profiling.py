@@ -9,14 +9,15 @@ overlap), the number of kernel launches (the host's calls that launch a
 kernel, ``cudaLaunchKernel*`` and ``cuLaunchKernel*``), and the kernels
 that take the most device time. Run as a script on a card, it profiles
 one call of each main path of the port at the sizes ``chip_smoke.py``
-drives (the rollout, ResNet serving, one update of the SJ_2X4 n-tuple
-trainer per update mode and table backend, one step of n-tuple depth-1
-evaluation, and one delayed update of the YEH_4X6 trainer on
-``"cached"`` and on ``"torch"``):
+drives (``rollout``; ResNet serving, ``serve``; one update of the SJ_2X4
+n-tuple trainer per update mode and table backend and one step of n-tuple
+depth-1 evaluation, ``ntuple``; one delayed update of the YEH_4X6 trainer
+on ``"cached"`` and on ``"torch"``, ``cached``; one flagship afterstate-TD
+update and each of its two phases, ``afterstate``):
 
-    python -m rein48_tpu_torch.utils.profiling
+    python -m rein48_tpu_torch.utils.profiling [group ...]
 
-and prints one JSON line per path.
+and prints one JSON line per path, for the groups named (all by default).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import subprocess
+import sys
 import time
 
 import torch
@@ -70,17 +72,38 @@ def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dic
 
 
 def main() -> None:
-    from rein48_tpu_torch.engine import fused, vector
-    from rein48_tpu_torch.models import nets
-    from rein48_tpu_torch.train import evaluate
-
+    profilers = {
+        "rollout": _profile_rollout, "serve": _profile_serve, "ntuple": _profile_ntuple,
+        "cached": _profile_cached, "afterstate": _profile_afterstate,
+    }
+    groups = sys.argv[1:] or list(profilers)
+    unknown = set(groups) - set(profilers)
+    if unknown:
+        raise SystemExit(f"unknown groups {sorted(unknown)}; choose from {list(profilers)}")
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    out = {}
+    for group, profile_group in profilers.items():
+        if group in groups:
+            profile_group(dev, out)
+    for name, r in out.items():
+        print(json.dumps({"path": name, "card": card, **r}))
+
+
+def _profile_rollout(dev, out) -> None:
+    from rein48_tpu_torch.engine import fused, vector
+
     state = vector.reset_batch(0, 65536, dev)
-    out = {"rollout B=65536 T=2048": device_breakdown(lambda: fused.rollout_random_fused(state, 1, 2048))}
+    out["rollout B=65536 T=2048"] = device_breakdown(lambda: fused.rollout_random_fused(state, 1, 2048))
+
+
+def _profile_serve(dev, out) -> None:
+    from rein48_tpu_torch.engine import vector
+    from rein48_tpu_torch.models import nets
+    from rein48_tpu_torch.train import evaluate
 
     model = nets.ResNetPolicy(64, 4, generator=torch.Generator().manual_seed(20260)).to(dev).eval()
     for depth, envs, chunk in ((0, 1024, None), (1, 256, 4)):
@@ -93,7 +116,10 @@ def main() -> None:
 
         out[f"serve depth={depth} envs={envs} chance_chunk={chunk} (one step)"] = device_breakdown(step)
 
+
+def _profile_ntuple(dev, out) -> None:
     from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.engine import vector
     from rein48_tpu_torch.train import ntuple as nt
 
     trained = None
@@ -120,7 +146,11 @@ def main() -> None:
         vector.step_autoreset(st, policy(trained.params, st.boards))
 
     out["ntuple eval depth=1 envs=256 chance_chunk=4 backend=mxu (one step)"] = device_breakdown(ntuple_step)
-    del trained
+
+
+def _profile_cached(dev, out) -> None:
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.train import ntuple as nt
 
     # The flagship's tables (4 x 16.7M entries) with the cached defaults
     # (2048 prefix rows), two updates in and refreshed from their heat.
@@ -140,8 +170,26 @@ def main() -> None:
         r["cached_windows"] = {k: ntuple.cached_windows[k] - windows[k] for k in windows}
         out[f"ntuple train delayed backend={backend} YEH_4X6 B=1024 T=128 (one update)"] = r
         del box
-    for name, r in out.items():
-        print(json.dumps({"path": name, "card": card, **r}))
+
+
+def _profile_afterstate(dev, out) -> None:
+    from rein48_tpu_torch.train import afterstate
+
+    # The flagship configuration (examples/train_afterstate_td_tpu.py:49-60):
+    # B=8192, T=32, ResNet 64x4 in bf16, adam, 2 epochs x 4 minibatches.
+    cfg = afterstate.AfterstateTDConfig(lr_decay_updates=100)
+    state, model, opt = afterstate.init_afterstate_td(cfg, 0, dev)
+    step = afterstate.make_afterstate_td_step(cfg, model, opt)
+    box = [state]
+
+    def update():
+        box[0] = step(box[0])[0]
+
+    name = "afterstate train B=8192 T=32 resnet 64x4 bf16"
+    out[f"{name} (one update)"] = device_breakdown(update, warmup=1, reps=2, top=8)
+    batch = step.rollout(box[0])[1]
+    out[f"{name} (rollout phase)"] = device_breakdown(lambda: step.rollout(box[0]), warmup=0, reps=2, top=8)
+    out[f"{name} (learn phase)"] = device_breakdown(lambda: step.learn(box[0], batch), warmup=0, reps=2, top=8)
 
 
 if __name__ == "__main__":

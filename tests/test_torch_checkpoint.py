@@ -1,0 +1,242 @@
+# Copyright 2026 The rein48-tpu Authors.
+# SPDX-License-Identifier: Apache-2.0
+"""The port's checkpoints, its train -> eval CLI, and its FLOP count.
+
+Checkpoints are exact: a restored state equals the saved one tensor for
+tensor, generator states and env counters included, and a resumed run
+equals an uninterrupted one bit for bit. The CLI's evaluation of a
+checkpoint equals ``evaluate_search``/``evaluate_ntuple`` called directly.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import io
+import json
+import os
+
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from rein48_tpu_torch import cli
+from rein48_tpu_torch.agents import ntuple
+from rein48_tpu_torch.engine.core import RewardMode
+from rein48_tpu_torch.models import nets
+from rein48_tpu_torch.train import afterstate, evaluate
+from rein48_tpu_torch.train import ntuple as nt
+from rein48_tpu_torch.utils import flops
+from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+torch.set_num_threads(1)
+
+SMALL = (("channels", 8), ("num_blocks", 1), ("dtype", torch.float32))
+CFG = afterstate.AfterstateTDConfig(batch_size=8, unroll_len=4, num_minibatches=2, model_kwargs=SMALL, lr_decay_updates=4)
+
+
+def assert_states_equal(a: afterstate.AfterstateTDState, b: afterstate.AfterstateTDState):
+    for (k, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()):
+        assert torch.equal(x, y), k
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert sa["count"] == sb["count"] and sa["name"] == sb["name"]
+    for m in a.optimizer.moments:
+        assert all(torch.equal(x, y) for x, y in zip(sa[m], sb[m])), m
+    for f in dataclasses.fields(a.env):
+        assert torch.equal(getattr(a.env, f.name), getattr(b.env, f.name)), f.name
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+    assert a.update_step == b.update_step
+
+
+class TestAfterstateCheckpoint:
+    def test_round_trip_is_bit_exact(self, tmp_path):
+        state, _ = afterstate.train_afterstate_td(CFG, 2, seed=1, log_every=2, device="cpu")
+        ck = Checkpointer(str(tmp_path))
+        ck.save(2, state)
+        other, _, _ = afterstate.init_afterstate_td(CFG, 99, device="cpu")
+        restored = ck.restore(other)
+        assert_states_equal(restored, state)
+        # The optimizer still updates the restored module's own parameters.
+        assert all(p is q for p, q in zip(restored.optimizer.params, restored.model.parameters()))
+
+    def test_resume_continues_bit_for_bit(self, tmp_path, capsys):
+        full, full_hist = afterstate.train_afterstate_td(CFG, 4, seed=2, log_every=1, device="cpu")
+        ck = Checkpointer(str(tmp_path), save_every=2)
+        afterstate.train_afterstate_td(CFG, 2, seed=2, log_every=1, checkpointer=ck, device="cpu")
+        resumed, hist = afterstate.train_afterstate_td(CFG, 2, seed=2, log_every=1, checkpointer=ck, device="cpu")
+        assert "resumed from checkpoint step 2" in capsys.readouterr().out
+        assert_states_equal(resumed, full)
+        strip = lambda h: [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in h]
+        assert strip(hist) == strip(full_hist[2:])
+        assert ck.all_steps() == [2, 4]
+
+    def test_missing_checkpoint_raises(self, tmp_path):
+        ck = Checkpointer(str(tmp_path))
+        assert ck.latest_step() is None
+        state, _, _ = afterstate.init_afterstate_td(CFG, 0, device="cpu")
+        with pytest.raises(FileNotFoundError):
+            ck.restore(state)
+        with pytest.raises(FileNotFoundError):
+            ck.restore_field("model")
+        ck.save(3, state)
+        with pytest.raises(FileNotFoundError):
+            ck.restore(state, step=4)
+
+    def test_config_round_trips_with_enums_by_name(self, tmp_path):
+        ck = Checkpointer(str(tmp_path))
+        assert ck.load_config() is None
+        cfg = dataclasses.replace(CFG, reward_mode=RewardMode.PARITY_ZERO, gamma=0.9)
+        ck.save_config(cfg)
+        saved = Checkpointer(str(tmp_path)).load_config()
+        assert saved == json.loads(json.dumps({
+            **dataclasses.asdict(cfg), "reward_mode": "PARITY_ZERO",
+            "model_kwargs": [["channels", 8], ["num_blocks", 1], ["dtype", "torch.float32"]],
+        }))
+        ck.save_config(nt.NTupleTrainConfig(tuples=ntuple.TINY_2X3))
+        assert ck.load_config()["tuples"] == [list(t) for t in ntuple.TINY_2X3]
+
+    def test_crashed_temporary_is_ignored_and_swept(self, tmp_path):
+        state, _, _ = afterstate.init_afterstate_td(CFG, 0, device="cpu")
+        ck = Checkpointer(str(tmp_path))
+        ck.save(1, state)
+        crashed = tmp_path / "7.x1y2.tmp"
+        crashed.mkdir()
+        (crashed / "state.pt").write_bytes(b"partial")
+        (tmp_path / "8").mkdir()  # a step directory with no state file
+        assert ck.latest_step() == 1
+        Checkpointer(str(tmp_path))
+        assert not crashed.exists() and ck.latest_step() == 1
+
+    def test_max_to_keep_and_restore_field(self, tmp_path):
+        state, _, _ = afterstate.init_afterstate_td(CFG, 0, device="cpu")
+        ck = Checkpointer(str(tmp_path), save_every=2, max_to_keep=2)
+        for step in range(1, 7):
+            assert ck.maybe_save(step, dataclasses.replace(state, update_step=step)) == (step % 2 == 0)
+        assert ck.all_steps() == [4, 6] and sorted(os.listdir(tmp_path)) == ["4", "6"]
+        assert ck.restore_field("update_step") == 6 and ck.restore_field("update_step", step=4) == 4
+        params = ck.restore_field("model")
+        for k, v in state.model.state_dict().items():
+            assert torch.equal(params[k], v), k
+        ck.save(6, dataclasses.replace(state, update_step=60))  # replaces step 6
+        assert ck.all_steps() == [4, 6] and ck.restore_field("update_step") == 60
+        ck.close()
+
+
+class TestNTupleCheckpoint:
+    def test_resume_continues_bit_for_bit(self, tmp_path, capsys):
+        cfg = nt.NTupleTrainConfig(batch_size=8, steps_per_update=4, tuples=ntuple.TINY_2X3, table_backend="torch")
+        full, _ = nt.train_ntuple(cfg, 4, seed=3, log_every=1, device="cpu")
+        ck = Checkpointer(str(tmp_path), save_every=1)
+        nt.train_ntuple(cfg, 2, seed=3, log_every=1, checkpointer=ck, device="cpu")
+        resumed, hist = nt.train_ntuple(cfg, 2, seed=3, log_every=1, checkpointer=ck, device="cpu")
+        assert "resumed from checkpoint step 2" in capsys.readouterr().out
+        assert [r["update"] for r in hist] == [3, 4] and resumed.update_step == 4
+        for k in full.params:
+            assert torch.equal(resumed.params[k], full.params[k]), k
+        for name in ("boards", "counter", "score"):
+            assert torch.equal(getattr(resumed.env, name), getattr(full.env, name))
+        assert torch.equal(resumed.prev_after, full.prev_after) and torch.equal(resumed.prev_valid, full.prev_valid)
+
+    def test_cached_state_round_trips(self, tmp_path):
+        cfg = nt.NTupleTrainConfig(
+            batch_size=8, steps_per_update=4, tuples=((0, 1, 2, 3),), update_mode="delayed", table_backend="cached",
+            cache_prefix_rows=128,
+        )
+        state, _ = nt.train_ntuple(cfg, 2, seed=4, log_every=2, device="cpu")
+        assert {"t0_rm", "t0_hot"} <= set(state.params)
+        ck = Checkpointer(str(tmp_path))
+        ck.save(2, state)
+        fresh, _ = nt.init_ntuple(cfg, 5, device="cpu")
+        restored = ck.restore(fresh)
+        for k, v in state.params.items():
+            assert restored.params[k].dtype == v.dtype and torch.equal(restored.params[k], v), k
+        assert torch.equal(restored.env.counter, state.env.counter) and restored.update_step == 2
+
+
+class TestTrainEvalCommands:
+    """In-process ``cli.main``: train with a checkpoint, then evaluate it."""
+
+    def _run(self, argv):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            assert cli.main(argv) == 0
+        return out.getvalue(), err.getvalue()
+
+    def test_afterstate_train_then_search(self, tmp_path, monkeypatch):
+        real = afterstate.AfterstateTDConfig
+
+        def small(**kw):
+            return real(model_kwargs=SMALL, gamma=0.95, num_minibatches=2, **kw)
+
+        monkeypatch.setattr(afterstate, "AfterstateTDConfig", small)
+        base = ["train", "--algo", "afterstate", "--batch-size", "8", "--unroll", "4", "--lr", "1e-3",
+                "--checkpoint-dir", str(tmp_path), "--checkpoint-every", "2", "--log-every", "1", "--device", "cpu"]
+        _, err = self._run(base + ["--updates", "2"])
+        assert err.startswith("final: {'update': 2")
+        out, _ = self._run(base + ["--updates", "2"])
+        assert "resumed from checkpoint step 2" in out
+        ck = Checkpointer(str(tmp_path))
+        assert ck.all_steps() == [2, 4] and ck.load_config()["gamma"] == 0.95
+        assert ck.load_config()["learning_rate"] == 1e-3
+
+        argv = ["eval", "--algo", "search", "--checkpoint-dir", str(tmp_path), "--num-envs", "4", "--max-steps", "12",
+                "--device", "cpu", "--protocol", "first", "--seed", "3"]
+        for depth in ("0", "1"):
+            out, err = self._run(argv + ["--depth", depth])
+            assert "restored step 4" in err
+            model = nets.make_model("resnet", **dict(SMALL))
+            model.load_state_dict(ck.restore_field("model"))
+            want = evaluate.evaluate_search(
+                depth=int(depth), num_envs=4, num_steps=12, seed=3, model=model.eval(), gamma=0.95,
+                reward_transform="log2", protocol="first", device="cpu",
+            )
+            assert json.loads(out.strip().splitlines()[-1]) == want
+        # A flag wins over the saved config.
+        out, _ = self._run(argv + ["--depth", "0", "--gamma", "0.5"])
+        want = evaluate.evaluate_search(
+            depth=0, num_envs=4, num_steps=12, seed=3, model=model, gamma=0.5, protocol="first", device="cpu"
+        )
+        assert json.loads(out.strip().splitlines()[-1]) == want
+
+    def test_ntuple_train_then_eval(self, tmp_path, monkeypatch):
+        real = nt.NTupleTrainConfig
+
+        def tiny(**kw):
+            return real(tuples=ntuple.TINY_2X3, **kw)
+
+        monkeypatch.setattr(nt, "NTupleTrainConfig", tiny)
+        self._run(["train", "--algo", "ntuple", "--updates", "2", "--batch-size", "8", "--unroll", "4", "--table-backend",
+                   "torch", "--checkpoint-dir", str(tmp_path), "--checkpoint-every", "2", "--log-every", "1", "--device", "cpu"])
+        monkeypatch.setattr(nt, "NTupleTrainConfig", real)
+        out, err = self._run(["eval", "--algo", "ntuple", "--checkpoint-dir", str(tmp_path), "--depth", "0",
+                              "--num-envs", "8", "--max-steps", "20", "--device", "cpu"])
+        assert "restored step 2" in err
+        params = Checkpointer(str(tmp_path)).restore_field("params")
+        want = nt.evaluate_ntuple(
+            params, real(tuples=ntuple.TINY_2X3, table_backend="torch"), depth=0, num_envs=8, num_steps=20, device="cpu"
+        )
+        assert json.loads(out.strip().splitlines()[-1]) == want
+
+
+class TestFlops:
+    def test_resnet_forward_flops_are_the_analytic_count(self):
+        # Per board, 16 cells: the stem and 8 block convolutions count all
+        # 9 taps (2 FLOPs each), then the two heads' dense layers.
+        convs = 16 * 2 * 9 * (16 * 64 + 8 * 64 * 64)
+        heads = 2 * (1024 * 64 + 64 * 4) + 2 * (1024 * 64 + 64 * 1)
+        assert convs + heads == 9_994_880
+        assert flops.model_forward_flops(nets.ResNetPolicy(64, 4)) == 9_994_880
+
+    def test_value_loss_backward_flops(self):
+        # The trainer's loss reads the value head only, so the policy head
+        # gets no gradient: forward + backward is 2.944x the forward.
+        model = nets.ResNetPolicy(64, 4)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            model(torch.zeros((8, 4, 4, 16), dtype=torch.bfloat16))[1].sum().backward()
+        assert counter.get_total_flops() / 8 == 29_426_560
+
+    def test_train_flops_and_mfu(self):
+        per_frame = flops.train_flops_per_frame(1e7, rollout_forwards=4, reuse_passes=2)
+        assert per_frame == 1e8
+        assert flops.mfu(1e6, per_frame) == pytest.approx(1e14 / 989e12)

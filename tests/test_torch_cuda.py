@@ -18,6 +18,8 @@ import torch
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
 from rein48_tpu_torch.ops import hbm_tables, tables
+from rein48_tpu_torch.train import afterstate, common
+from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
 pytestmark = pytest.mark.cuda
 
@@ -319,3 +321,65 @@ def test_ntuple_cached_backend_matches_torch_backend(cuda):
         for k in b:
             got = a[k][hbm_tables.physical_index(a[f"{k[:2]}_rm"], rows)]
             assert_sums_close(got, b[k], scale[k].abs())
+
+
+@pytest.mark.parametrize("name", common.OPTIMIZERS)
+def test_optimizer_on_card_matches_cpu(cuda, name):
+    # Gradients whose norm is above the clip (3.0) and below it (0.001).
+    g = torch.Generator().manual_seed(11)
+    params = [torch.randn(s, generator=g) for s in ((64, 16, 3, 3), (64,), (4, 64))]
+    steps = [[torch.randn(p.shape, generator=g) * (3.0 if i % 2 == 0 else 0.001) for p in params] for i in range(6)]
+    cpu, dev = [p.clone() for p in params], [p.to(cuda) for p in params]
+    schedule = common.cosine_decay_schedule(0.05, 4, alpha=0.1)
+    a = common.make_optimizer(name, schedule, cpu, max_grad_norm=0.5)
+    b = common.make_optimizer(name, schedule, dev, max_grad_norm=0.5)
+    for grads in steps:
+        a.step(grads)
+        b.step([x.to(cuda) for x in grads])
+    # The clip's norm sums in another order on the card, and its sqrt and
+    # division may round differently.
+    for x, y in zip(cpu, dev):
+        torch.testing.assert_close(y.cpu(), x, rtol=1e-5, atol=1e-7)
+    for m in a.moments:
+        for x, y in zip(a.moments[m], b.moments[m]):
+            torch.testing.assert_close(y.cpu(), x, rtol=1e-5, atol=1e-9)
+
+
+SMALL_AFTERSTATE = afterstate.AfterstateTDConfig(
+    batch_size=256, unroll_len=8, num_minibatches=2, model_kwargs=(("channels", 16), ("num_blocks", 1))
+)
+
+
+def test_afterstate_update_on_card(cuda):
+    state, model, opt = afterstate.init_afterstate_td(SMALL_AFTERSTATE, 2, device=cuda)
+    before = [p.detach().clone() for p in model.parameters()]
+    state, metrics = afterstate.make_afterstate_td_step(SMALL_AFTERSTATE, model, opt)(state)
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values())
+    assert float(metrics["env_steps"]) == 256 * 8 and state.update_step == 1
+    assert any(not torch.equal(a, b) for a, b in zip(before, model.parameters()))
+
+
+def test_afterstate_checkpoint_on_card(cuda, tmp_path):
+    state, _ = afterstate.train_afterstate_td(SMALL_AFTERSTATE, 2, seed=1, log_every=2, device=cuda)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(2, state)
+    restored = ck.restore(afterstate.init_afterstate_td(SMALL_AFTERSTATE, 5, device=cuda)[0])
+    for (k, x), y in zip(state.model.state_dict().items(), restored.model.state_dict().values()):
+        assert torch.equal(x, y), k
+    for m in state.optimizer.moments:
+        assert all(torch.equal(x, y) for x, y in zip(state.optimizer.moments[m], restored.optimizer.moments[m]))
+    assert restored.optimizer.count == state.optimizer.count
+    assert torch.equal(state.generator.get_state(), restored.generator.get_state())
+    assert all(torch.equal(getattr(state.env, f), getattr(restored.env, f)) for f in ("boards", "counter", "score"))
+    # The next rollout gives the same boards from either state.
+    runs = []
+    for st in (state, restored):
+        step = afterstate.make_afterstate_td_step(SMALL_AFTERSTATE, st.model, st.optimizer)
+        runs.append(step.rollout(st)[1]["after_boards"])
+    assert torch.equal(*runs)
+    # Onto the CPU: tensors and counters land there unchanged.
+    on_cpu = ck.restore(afterstate.init_afterstate_td(SMALL_AFTERSTATE, 5, device="cpu")[0])
+    for (k, x), y in zip(state.model.state_dict().items(), on_cpu.model.state_dict().values()):
+        assert y.device.type == "cpu" and torch.equal(x.cpu(), y), k
+    assert on_cpu.env.counter.device.type == "cpu" and torch.equal(on_cpu.env.counter, state.env.counter.cpu())
+    assert on_cpu.generator.device.type == "cpu" and on_cpu.optimizer.count == state.optimizer.count

@@ -47,4 +47,6 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", _GUARD], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 29  # every module of slices 1-3 was found (ops.hbm_tables is the 29th)
+    # Every module of slices 1-5 was found (slice 5 adds agents.ppo,
+    # train.afterstate, utils.checkpoint and utils.flops: 33).
+    assert int(proc.stdout.strip()) >= 33

@@ -251,9 +251,15 @@ class TestTorchCli:
         out = self._run(["eval", "--algo", "search", "--depth", "1", "--num-envs", "4", "--max-steps", "6", "--device", "cpu"])
         assert out["episodes"] >= 0 and "frac_2048" in out
 
-    def test_unported_commands_say_so(self):
-        checkpoint_flags = (["--gamma", "0.9"], ["--model", "resnet"], ["--sample"], ["--checkpoint-dir", "ck"])
-        search = [["eval", "--algo", "search", "--device", "cpu", *f] for f in checkpoint_flags]
-        for argv in (["train"], ["eval", "--algo", "ppo", "--device", "cpu"], *search):
+    def test_unported_commands_say_so(self, tmp_path):
+        search = ["eval", "--algo", "search", "--device", "cpu"]
+        for argv in (["train"], ["eval", "--algo", "ppo", "--device", "cpu"], search + ["--sample"]):
             with pytest.raises(SystemExit, match="not yet ported"):
                 cli.main(argv)
+        # The critic's settings need a checkpoint: the heuristic leaf has no units.
+        for flags in (["--gamma", "0.9"], ["--model", "resnet"]):
+            with pytest.raises(SystemExit, match="needs --checkpoint-dir"):
+                cli.main(search + flags)
+        with pytest.raises(SystemExit, match="no checkpoint directory"):
+            cli.main(search + ["--checkpoint-dir", str(tmp_path / "missing")])
+        assert not (tmp_path / "missing").exists()
