@@ -17,8 +17,13 @@ its depth-0/depth-1 ``evaluate_ntuple``, the ``YEH_4X6`` trainer on the
 afterstate-TD trainer ``train_afterstate_td`` at its flagship
 configuration with its bf16-against-float32 loss, its checkpoint, ``eval
 --algo search --checkpoint-dir`` of what it trained at depth 0 and 1, and
-``train --algo afterstate`` with a resume), checks what comes out, and
-prints one line per phase. Each path runs
+``train --algo afterstate`` with a resume; then the actor-critic family:
+``train_ppo`` at the PPO flagship, with and without the afterstate critic,
+its bf16-against-float32 loss, ``train_a3c`` at the A3C flagship and in the
+reference-parity regime, the critic-carrying PPO checkpoint restored on the
+card and on the CPU, and ``train --algo ppo --afterstate`` with a resume,
+``eval --algo ppo`` greedy and sampled and ``eval --algo search`` on the
+afterstate critic), checks what comes out, and prints one line per phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -107,6 +112,23 @@ LOSS_BF16_RTOL = 0.02
 AS_BF16_BOARDS = 4096
 # eval --algo search --checkpoint-dir: (depth, envs, steps, chance_chunk).
 AS_EVAL = ((0, 1024, 300, None), (1, 256, 200, 4))
+# The PPO flagship (examples/train_ppo_flagship_tpu.py:42-52): B=8192, T=32,
+# ResNet 64x4 in bf16, gamma 0.997, adam at 3e-4 on a cosine over the
+# example's 8,000 updates to 0.1 of it, entropy weight 0.01 -> 0.002 over
+# 6,400 updates, 4 epochs x 4 minibatches of 65,536 boards, clip norm 0.5.
+# The first update is a warm-up. With the afterstate critic
+# (examples/train_ppo_afterstate_tpu.py:51-67): two ResNets 64x4, lr 1.2e-4
+# over 6,000 updates, entropy 0.003 -> 0.001 over 4,800.
+PPO_UPDATES, PPOC_UPDATES = 4, 3
+# The A3C flagship (examples/train_a3c_flagship_tpu.py:43-54): B=8192, T=32,
+# ResNet 64x4 bf16, gamma 0.997, adam at 3e-4 over 12,000 updates, entropy
+# 0.01 -> 0.002 over 9,600; one pass over all 262,144 boards per update.
+# Then the reference-parity regime (B=64, T=100, the MLP on raw tiles).
+A3C_UPDATES, A3C_PARITY_UPDATES = 4, 3
+# The first minibatch's approx_kl before any optimizer step: acting ran the
+# net at 8,192 boards and the learn phase runs it at 65,536, where cuDNN
+# may pick other bf16 algorithms, so the ratios are 1 only up to rounding.
+KL_AT_BEHAVIOR_TOL = 1e-3
 
 
 def log(phase: str, **fields) -> None:
@@ -914,7 +936,7 @@ def afterstate_bf16_phase(state, cfg, step, batch):
     from rein48_tpu_torch.models import nets
     from rein48_tpu_torch.train import afterstate, common
 
-    perm = step.permutations(torch.Generator(device=batch["targets"].device).manual_seed(SEED), batch["targets"].device)
+    perm = step.permutations(state, batch["targets"].device)[0]
     boards, targets = (x[0][:AS_BF16_BOARDS] for x in step.minibatches(batch, perm))
     f32 = nets.ResNetPolicy(64, 4, dtype=torch.float32)
     f32.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
@@ -935,8 +957,9 @@ def afterstate_bf16_phase(state, cfg, step, batch):
 
 def afterstate_checkpoint_phase(state, cfg, ckpt_dir, dev):
     """Save the trained state, restore it into an init from another seed:
-    every tensor, the optimizer, the env counters and the generator equal
-    bit for bit, and the next rollout gives the same boards from both."""
+    every tensor, the optimizer, the env counters and the learner's seed
+    equal bit for bit, and the next rollout gives the same boards and the
+    next learn phase the same shuffles from both."""
     from rein48_tpu_torch.train import afterstate
     from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -960,11 +983,12 @@ def afterstate_checkpoint_phase(state, cfg, ckpt_dir, dev):
         ),
         "env": all(torch.equal(getattr(state.env, f.name), getattr(restored.env, f.name))
                    for f in dataclasses.fields(state.env)),
-        "generator": torch.equal(state.generator.get_state(), restored.generator.get_state()),
+        "seed": restored.seed == state.seed,
         "update_step": restored.update_step == state.update_step,
     }
-    boards = [afterstate.make_afterstate_td_step(cfg, s.model, s.optimizer).rollout(s)[1]["after_boards"] for s in (state, restored)]
-    equal["next_rollout"] = bool(torch.equal(*boards))
+    steps = [afterstate.make_afterstate_td_step(cfg, s.model, s.optimizer) for s in (state, restored)]
+    equal["next_rollout"] = bool(torch.equal(*(st.rollout(s)[1]["after_boards"] for st, s in zip(steps, (state, restored)))))
+    equal["next_shuffles"] = bool(torch.equal(*(st.permutations(s, dev) for st, s in zip(steps, (state, restored)))))
     log("afterstate/checkpoint", step=state.update_step, save_s=round(save_s, 4), restore_s=round(restore_s, 4),
         bytes_on_disk=size, equal=json.dumps(equal))
     if not all(equal.values()):
@@ -1036,6 +1060,332 @@ def afterstate_cli_phase():
             raise AssertionError(f"train --algo afterstate did not resume or eval took other settings: {finals} {leaf}")
         if not all(np.isfinite(v) for f in finals for v in f.values()) or not all(np.isfinite(v) for v in stats.values()):
             raise AssertionError(f"train/eval --algo afterstate gave non-finite values: {finals} {stats}")
+
+
+def ppo_config(critic: bool = False):
+    from rein48_tpu_torch.train import ppo
+
+    if critic:
+        return ppo.PPOConfig(
+            batch_size=8192, unroll_len=32, gamma=0.997, learning_rate=1.2e-4, lr_decay_updates=6000, lr_final_frac=0.1,
+            entropy_beta=0.003, entropy_beta_final=0.001, entropy_decay_updates=4800, afterstate_critic=True,
+        )
+    return ppo.PPOConfig(
+        batch_size=8192, unroll_len=32, gamma=0.997, learning_rate=3e-4, lr_decay_updates=8000, lr_final_frac=0.1,
+        entropy_beta=0.01, entropy_beta_final=0.002, entropy_decay_updates=6400,
+    )
+
+
+def a3c_config():
+    from rein48_tpu_torch.train import a3c
+
+    return a3c.A3CConfig(
+        batch_size=8192, unroll_len=32, gamma=0.997, learning_rate=3e-4, lr_decay_updates=12000, lr_final_frac=0.1,
+        entropy_beta=0.01, entropy_beta_final=0.002, entropy_decay_updates=9600,
+    )
+
+
+def make_step(cfg, state):
+    from rein48_tpu_torch.train import a3c, ppo
+
+    if isinstance(cfg, ppo.PPOConfig):
+        return ppo.make_ppo_step(cfg, state.model, state.optimizer, state.after_model)
+    return a3c.make_a3c_step(cfg, state.model, state.optimizer)
+
+
+def own_batch_loss(step, state, batch, chunk: int = 65536):
+    """The update's loss on its own batch (no gradient): PPO's over the
+    minibatches of the batch in rollout order, A3C's over the whole batch.
+    Returns ``(loss, aux)``, ``aux`` of the first minibatch for PPO."""
+    from rein48_tpu_torch.agents import a3c as a3c_agent
+    from rein48_tpu_torch.train import a3c, ppo
+
+    cfg = step.config
+    T, B = cfg.unroll_len, cfg.batch_size
+    beta = a3c.entropy_beta_at(cfg, state.update_step)
+    with torch.no_grad():
+        if isinstance(step, ppo.PPOStep):
+            rows = torch.arange(T, device=batch["returns"].device)
+            order = rows[:, None].expand(T, B) if cfg.shard_friendly_perm else torch.arange(T * B, device=rows.device)
+            mbs = step.minibatches(batch, order)
+            out = [step.minibatch_loss({k: v[m] for k, v in mbs.items()}, step.loss_cfg._replace(entropy_beta=beta))
+                   for m in range(cfg.num_minibatches)]
+            return float(torch.stack([loss for loss, _ in out]).mean()), {k: float(v) for k, v in out[0][1].items()}
+        boards = batch["boards"].reshape(T * B, 4, 4)
+        parts = [step.policy(boards[i : i + chunk]) for i in range(0, T * B, chunk)]
+        logits = a3c_agent.masked_logits(torch.cat([p[0] for p in parts]).reshape(T, B, 4), batch["legal_mask"])
+        loss, aux = a3c_agent.a3c_loss(
+            logits, torch.cat([p[1] for p in parts]).reshape(T, B), batch["actions"], batch["targets"],
+            step.loss_cfg._replace(entropy_beta=beta),
+        )
+        return float(loss), {k: float(v) for k, v in aux.items()}
+
+
+def actor_critic_train_phase(name, dev, cfg, updates, ckpt_dir=None):
+    """A trainer (``train_ppo`` or ``train_a3c``) at ``cfg`` through its entry
+    point, a checkpoint at its last update when ``ckpt_dir`` is given; then
+    one more update under the profiler (launches, device time, busy share)
+    and one driven by its two phases, timed, with the loss on its own batch
+    before and after the learn phase."""
+    from rein48_tpu_torch.train import a3c, ppo
+    from rein48_tpu_torch.utils import flops, profiling
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    is_ppo = isinstance(cfg, ppo.PPOConfig)
+    train = ppo.train_ppo if is_ppo else a3c.train_a3c
+    B, T = cfg.batch_size, cfg.unroll_len
+    zero_table_counts()
+    before_launches = kernel_launches()
+    clock = Clock()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ckpt = Checkpointer(ckpt_dir, save_every=updates) if ckpt_dir else None
+    t0 = time.perf_counter()
+    state, history = train(cfg, updates, seed=SEED, log_every=1, logger=clock, checkpointer=ckpt, device=dev)
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    launched = {k: v - before_launches[k] for k, v in kernel_launches().items()}
+    per_update = clock.per_update_s()  # updates 2..N: the first is the warm-up
+    rates = [B * T / dt for dt in per_update]
+    rate = float(np.median(rates))
+    fwd = flops.model_forward_flops(state.model)
+    if is_ppo:
+        after_fwd = flops.model_forward_flops(state.after_model) if state.after_model is not None else 0.0
+        per_frame = flops.ppo_flops_per_frame(cfg.num_epochs, fwd, after_fwd)
+    else:
+        per_frame = flops.a3c_flops_per_frame(fwd)
+    if not all(np.isfinite(v) for r in history for v in r.values()) or len(history) != updates:
+        raise AssertionError(f"{name} records not finite: {history}")
+    init = cfg.make_model(torch.Generator().manual_seed(SEED)).state_dict()
+    if not any(not torch.equal(v.cpu(), init[k]) for k, v in state.model.state_dict().items()):
+        raise AssertionError(f"{name} did not move the parameters")
+
+    step = make_step(cfg, state)
+    box = [state]
+
+    def update():
+        box[0] = step(box[0])[0]
+
+    prof = profiling.device_breakdown(update, warmup=0, reps=1, top=5)
+    state = box[0]
+    last = history[-1]
+    record = {k: round(last[k], 6) for k in ("loss", "entropy", "approx_kl", "clip_frac", "after_loss", "grad_norm",
+                                               "avg_episode_tile_sum", "best_tile") if k in last}
+    log(
+        name, B=B, T=T, model=f"resnet 64x4 bf16{' x2' if is_ppo and cfg.afterstate_critic else ''}", updates=updates,
+        wall_s=round(wall, 3), first_update_s=round(clock.records[0][0] - t0, 3),
+        ms_per_update=[round(1e3 * dt, 3) for dt in per_update], env_steps_per_s=[round(r, 1) for r in rates],
+        env_steps_per_s_median=round(rate, 1), forward_flops_per_board=fwd, model_flops_per_env_step=per_frame,
+        model_tflops_per_s=round(rate * per_frame / 1e12, 3), mfu=round(flops.mfu(rate, per_frame), 5),
+        mfu_peak="989 TFLOP/s bf16 dense (H100 SXM data sheet)", peak_gib=round(peak_gib, 3),
+        profiled_update=json.dumps({k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "launches")}),
+        top_kernels=json.dumps(prof["top"]), kernel_launches=json.dumps(launched), records=json.dumps(record),
+    )
+    if any(launched.values()):
+        raise AssertionError(f"{name} launched a kernel of another path: {launched}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    env, batch, rollout_metrics = step.rollout(state)
+    torch.cuda.synchronize()
+    rollout_ms = 1e3 * (time.perf_counter() - t0)
+    loss_before, aux0 = own_batch_loss(step, state, batch)
+    t0 = time.perf_counter()
+    metrics = step.learn(state, batch)
+    torch.cuda.synchronize()
+    learn_ms = 1e3 * (time.perf_counter() - t0)
+    loss_after, _ = own_batch_loss(step, state, batch)
+    state = dataclasses.replace(state, env=env, update_step=state.update_step + 1)
+    finite = all(np.isfinite(float(v)) for v in {**metrics, **rollout_metrics}.values())
+    fields = dict(update=state.update_step, rollout_ms=round(rollout_ms, 3), learn_ms=round(learn_ms, 3),
+                  loss_on_own_batch_before=round(loss_before, 5), loss_on_own_batch_after=round(loss_after, 5),
+                  grad_norm=round(float(metrics["grad_norm"]), 5), finite=finite)
+    if is_ppo:
+        fields.update(approx_kl_at_behavior=f"{aux0['approx_kl']:.3g}", clip_frac_at_behavior=aux0["clip_frac"],
+                      approx_kl_last=f"{float(metrics['approx_kl_last']):.3g}", clip_frac=round(float(metrics["clip_frac"]), 5))
+    log(f"{name}/last-update", **fields)
+    if not finite or batch["actions"].numel() != B * T:
+        raise AssertionError(f"{name}: the last update's metrics {metrics}")
+    if not loss_after < loss_before:
+        raise AssertionError(f"{name}: the learn phase did not lower the loss on its own batch: {loss_before} -> {loss_after}")
+    if is_ppo and not abs(aux0["approx_kl"]) <= KL_AT_BEHAVIOR_TOL:
+        raise AssertionError(f"{name}: approx_kl at the behavior parameters is {aux0['approx_kl']}")
+    return state, step, batch
+
+
+def ppo_bf16_phase(state, step, batch):
+    """One minibatch's PPO loss and gradient norm: the bf16 net on the card
+    against the same weights as a float32 net on the CPU. Held to
+    ``LOSS_BF16_RTOL`` on the first minibatch of a fresh rollout, the
+    gradient the next update takes; printed, unheld, on ``batch``, which
+    the last learn phase fitted: its gradient is a few times smaller, a sum
+    of residuals of both signs, where bf16's rounding of values near 70
+    (steps of 0.25-0.5) shows."""
+    from rein48_tpu_torch.models import nets
+    from rein48_tpu_torch.train import a3c, common, ppo
+
+    cfg = step.config
+    beta = a3c.entropy_beta_at(cfg, state.update_step)
+    f32 = nets.ResNetPolicy(64, 4, dtype=torch.float32)
+    f32.load_state_dict({k: v.cpu() for k, v in state.model.state_dict().items()})
+    f32_step = ppo.make_ppo_step(cfg, f32, state.optimizer)
+    perm = step.permutations(state, batch["returns"].device)[0]
+    fresh = step.rollout(state)[1]
+    out = {}
+    for which, b in (("fresh", fresh), ("fitted", batch)):
+        mb = {k: v[0][:AS_BF16_BOARDS] for k, v in step.minibatches(b, perm).items()}
+        for name, st, model, m in (("card_bf16", step, state.model, mb), ("cpu_f32", f32_step, f32, {k: v.cpu() for k, v in mb.items()})):
+            loss, _ = st.minibatch_loss(m, st.loss_cfg._replace(entropy_beta=beta))
+            grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+            out[which, name] = (float(loss.detach()), float(common.tree_norm(grads)))
+    rel = {}
+    for which in ("fresh", "fitted"):
+        (lc, gc), (lf, gf) = out[which, "card_bf16"], out[which, "cpu_f32"]
+        rel[which] = (abs(lc - lf) / abs(lf), abs(gc - gf) / gf)
+        log(f"ppo/bf16-vs-f32/{which}", boards=AS_BF16_BOARDS, loss_card=round(lc, 6), loss_cpu_f32=round(lf, 6),
+            grad_norm_card=round(gc, 6), grad_norm_cpu_f32=round(gf, 6), rel_err_loss=f"{rel[which][0]:.3g}",
+            rel_err_grad_norm=f"{rel[which][1]:.3g}", rtol=LOSS_BF16_RTOL if which == "fresh" else None)
+    if not (rel["fresh"][0] <= LOSS_BF16_RTOL and rel["fresh"][1] <= LOSS_BF16_RTOL):
+        raise AssertionError("the bf16 PPO loss or gradient norm on the card disagrees with the float32 net")
+
+
+def a3c_parity_phase(dev):
+    """``A3CConfig.reference_parity()`` (B=64, T=100, the MLP at 64 hidden
+    units on raw tiles, RMSprop, no mask) through ``train_a3c``, then one
+    update by phases: every reward is zero and the targets are the
+    bootstrap's discounts alone, cut at episode ends."""
+    from rein48_tpu_torch.agents import a3c as a3c_agent
+    from rein48_tpu_torch.train import a3c
+
+    cfg = a3c.A3CConfig.reference_parity()
+    zero_table_counts()
+    before_launches = kernel_launches()
+    clock = Clock()
+    t0 = time.perf_counter()
+    state, history = a3c.train_a3c(cfg, A3C_PARITY_UPDATES, seed=SEED, log_every=1, logger=clock, device=dev)
+    wall = time.perf_counter() - t0
+    launched = {k: v - before_launches[k] for k, v in kernel_launches().items()}
+    step = a3c.make_a3c_step(cfg, state.model, state.optimizer)
+    env, batch, _ = step.rollout(state)
+    targets = batch["targets"]
+    want = a3c_agent.n_step_returns(torch.zeros_like(targets), targets[-1], cfg.gamma, dones=batch["dones"],
+                                    parity_drop_last_reward=True)
+    zero_reward = not bool(batch["rewards"].count_nonzero())
+    bootstrap_only = bool(torch.equal(targets, want))
+    metrics = step.learn(state, batch)
+    log("a3c/parity", B=cfg.batch_size, T=cfg.unroll_len, model="mlp 64 float32, raw tiles, rmsprop",
+        updates=A3C_PARITY_UPDATES, wall_s=round(wall, 3), ms_per_update=[round(1e3 * dt, 3) for dt in clock.per_update_s()],
+        rewards_all_zero=zero_reward, targets_bootstrap_only=bootstrap_only,
+        targets_nonzero=int(targets.count_nonzero()), loss=round(float(metrics["loss"]), 6),
+        critic_loss=round(float(metrics["critic_loss"]), 6), kernel_launches=json.dumps(launched),
+        records=json.dumps({k: round(v, 6) for k, v in history[-1].items()}))
+    if not (zero_reward and bootstrap_only) or not all(np.isfinite(v) for r in history for v in r.values()) or any(launched.values()):
+        raise AssertionError(f"a3c reference parity: rewards zero {zero_reward}, targets bootstrap-only {bootstrap_only}")
+
+
+def ppo_checkpoint_phase(state, cfg, ckpt_dir, dev):
+    """The critic-carrying PPO state saved and restored into an init from
+    another seed on the card (every tensor, the optimizer, the env, the seed
+    equal; the next rollout and shuffles equal) and into one on the CPU (the
+    same shuffles and sampling noise: the draws are named by the seed and
+    the update step)."""
+    from rein48_tpu_torch.engine import philox
+    from rein48_tpu_torch.train import ppo
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    ck = Checkpointer(ckpt_dir)
+    t0 = time.perf_counter()
+    ck.save(state.update_step, state)
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in (Path(ckpt_dir) / str(state.update_step)).iterdir())
+    restored = ck.restore(ppo.init_ppo(cfg, SEED + 1, dev)[0])
+    nets_equal = all(
+        torch.equal(a, b)
+        for m in ("model", "after_model")
+        for a, b in zip(getattr(state, m).state_dict().values(), getattr(restored, m).state_dict().values())
+    )
+    equal = {
+        "params": nets_equal,
+        "optimizer": restored.optimizer.count == state.optimizer.count and all(
+            torch.equal(a, b) for m in state.optimizer.moments for a, b in zip(state.optimizer.moments[m], restored.optimizer.moments[m])
+        ),
+        "env": all(torch.equal(getattr(state.env, f.name), getattr(restored.env, f.name)) for f in dataclasses.fields(state.env)),
+        "seed_and_step": (restored.seed, restored.update_step) == (state.seed, state.update_step),
+    }
+    steps = [make_step(cfg, s) for s in (state, restored)]
+    rolled = [st.rollout(s)[1] for st, s in zip(steps, (state, restored))]
+    equal["next_rollout"] = all(bool(torch.equal(rolled[0][k], rolled[1][k])) for k in ("boards", "actions", "after_boards"))
+    perms = [st.permutations(s, dev) for st, s in zip(steps, (state, restored))]
+    equal["next_shuffles"] = bool(torch.equal(*perms))
+    on_cpu = ck.restore(ppo.init_ppo(cfg, SEED + 1, "cpu")[0])
+    cpu_perms = make_step(cfg, on_cpu).permutations(on_cpu, torch.device("cpu"))
+    shape = (cfg.unroll_len, cfg.batch_size, 4)
+    words = [philox.learner_words(s.seed, s.update_step, philox.SAMPLE, shape, device=d).cpu() for s, d in ((state, dev), (on_cpu, "cpu"))]
+    noise = [philox.learner_gumbel(s.seed, s.update_step, shape, device=d).cpu() for s, d in ((state, dev), (on_cpu, "cpu"))]
+    noise_err = float((noise[0] - noise[1]).abs().max())
+    equal["cpu_resume_shuffles"] = bool(torch.equal(perms[0].cpu(), cpu_perms))
+    equal["cpu_resume_noise_words"] = bool(torch.equal(*words))
+    log("ppo/checkpoint", step=state.update_step, save_s=round(save_s, 4), bytes_on_disk=size,
+        fields=json.dumps([f.name for f in dataclasses.fields(state)]), equal=json.dumps(equal),
+        cpu_resume_gumbel_max_abs_err=f"{noise_err:.3g}")
+    if not all(equal.values()) or noise_err > 1e-5:
+        raise AssertionError(f"the restored PPO state differs: {equal}, gumbel noise err {noise_err}")
+
+
+def ppo_cli_phase(dev):
+    """``train --algo ppo --afterstate --checkpoint-dir`` at the CLI's
+    defaults (B=4096, T=32, two ResNets 64x4, lr 3e-4) for 2 updates, then 2
+    more, which resume; ``eval --algo ppo`` greedy and with ``--sample``;
+    ``eval --algo search --depth 0`` on the afterstate critic. Every action
+    played is legal, and eval takes gamma and the transform from
+    ``train_config.json``."""
+    from rein48_tpu_torch.engine import vector
+    from rein48_tpu_torch.models import nets
+    from rein48_tpu_torch.train import evaluate
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    with tempfile.TemporaryDirectory() as d:
+        base = ["train", "--algo", "ppo", "--afterstate", "--checkpoint-dir", d, "--checkpoint-every", "2", "--log-every", "1",
+                "--seed", str(SEED), "--updates", "2"]
+        t0 = time.perf_counter()
+        _, err1 = run_cli_output(base)
+        out2, err2 = run_cli_output(base)
+        wall = time.perf_counter() - t0
+        finals = [ast.literal_eval(e.split("final: ", 1)[1].strip()) for e in (err1, err2)]
+        resumed = "resumed from checkpoint step 2" in out2
+        ck = Checkpointer(d)
+        saved = ck.load_config()
+        stats, legal = {}, {}
+        evals = [("ppo", ["--algo", "ppo"]), ("ppo_sample", ["--algo", "ppo", "--sample"]),
+                 ("search_depth0", ["--algo", "search", "--depth", "0", "--protocol", "first"])]
+        leaf = None
+        for name, args in evals:
+            out, err = run_cli_output(["eval", *args, "--checkpoint-dir", d, "--num-envs", "256", "--max-steps", "200",
+                                       "--seed", str(SEED)])
+            stats[name] = json.loads(out.strip().splitlines()[-1])
+            if name.startswith("search"):
+                leaf = json.loads(err.split("value leaf ", 1)[1].splitlines()[0])
+                leaf["afterstate_critic_leaf"] = "using afterstate-critic leaf" in err
+        policy, after = nets.make_model("resnet"), nets.make_model("resnet")
+        policy.load_state_dict(ck.restore_field("model"))
+        after.load_state_dict(ck.restore_field("after_model"))
+        policy, after = policy.to(dev).eval(), after.to(dev).eval()
+        for name, fn in (("ppo", evaluate.greedy_policy(policy)),
+                         ("search_depth0", evaluate._build_search_policy(0, after, "onehot", saved["gamma"], saved["reward_transform"]))):
+            checked = LegalityCheck(fn)
+            with torch.inference_mode():
+                evaluate._first_episode_rollout(vector.reset_batch(SEED, 256, dev), policy_fn=checked, num_steps=32)
+            legal[name] = int(checked.illegal)
+        log("ppo/cli", argv=" ".join(base).replace(d, "<tmpdir>"), wall_s=round(wall, 3), resumed=resumed,
+            updates=[f["update"] for f in finals], steps_per_sec=[round(f["steps_per_sec"], 1) for f in finals],
+            loss=[round(f["loss"], 5) for f in finals], after_loss=[round(f["after_loss"], 5) for f in finals],
+            eval_search_leaf=json.dumps(leaf), illegal_choices=json.dumps(legal),
+            eval_avg_score=json.dumps({k: round(v["avg_score"], 3) for k, v in stats.items()}))
+        if not resumed or [f["update"] for f in finals] != [2, 4] or any(legal.values()):
+            raise AssertionError(f"train --algo ppo --afterstate did not resume, or an action was illegal: {finals} {legal}")
+        if leaf["gamma"] != saved["gamma"] or leaf["reward_transform"] != saved["reward_transform"] or not leaf["afterstate_critic_leaf"]:
+            raise AssertionError(f"eval did not take the saved settings or the critic leaf: {leaf} {saved['gamma']}")
+        if not all(np.isfinite(v) for f in finals for v in f.values()) or not all(np.isfinite(v) for st in stats.values() for v in st.values()):
+            raise AssertionError(f"train/eval --algo ppo gave non-finite values: {finals} {stats}")
 
 
 def main() -> int:
@@ -1249,6 +1599,25 @@ def main() -> int:
         del state
         afterstate_eval_phase(cfg, ckpt_dir, dev)
     afterstate_cli_phase()
+    # 21-27. The actor-critic family at the flagship configurations through
+    # their entry points: PPO, PPO with the afterstate critic and its
+    # checkpoint (restored on the card and on the CPU), A3C in one pass over
+    # 262,144 boards, the reference-parity regime, the CLI, and PPO's bf16
+    # loss against float32. No kernel of the port is on this path either.
+    ppo_trained = actor_critic_train_phase("ppo/train", dev, ppo_config(), PPO_UPDATES)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        cfg = ppo_config(critic=True)
+        state, step, batch = actor_critic_train_phase("ppo/afterstate", dev, cfg, PPOC_UPDATES, ckpt_dir)
+        del step, batch
+        ppo_checkpoint_phase(state, cfg, ckpt_dir, dev)
+        del state
+    torch.cuda.empty_cache()
+    actor_critic_train_phase("a3c/train", dev, a3c_config(), A3C_UPDATES)
+    torch.cuda.empty_cache()
+    a3c_parity_phase(dev)
+    ppo_cli_phase(dev)
+    ppo_bf16_phase(*ppo_trained)
+    del ppo_trained
     g, sc = gather["value(afterstates)"], scatter[("stats", NT_B * 2 * 8)]
     sc_big, hp_over = scatter[("stats", NT_B * 2 * 8 * 4)], hp_scatter["overflowing"]
     hp_scatter = hp_scatter["just-refreshed"]

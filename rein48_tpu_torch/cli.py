@@ -7,12 +7,17 @@
     python -m rein48_tpu_torch eval --algo search --depth 1 --checkpoint-dir ckpt/as
     python -m rein48_tpu_torch train --algo ntuple --updates 200 --checkpoint-dir ckpt/nt
     python -m rein48_tpu_torch eval --algo ntuple --depth 0 --checkpoint-dir ckpt/nt
+    python -m rein48_tpu_torch train --algo ppo --afterstate --checkpoint-dir ckpt/ppo
+    python -m rein48_tpu_torch eval --algo ppo --sample --checkpoint-dir ckpt/ppo
+    python -m rein48_tpu_torch train --algo a3c --parity
 
-Ported so far: ``bench``, ``train --algo afterstate|ntuple`` (with
-checkpoints and resume) and ``eval --algo search|ntuple``, where ``search``
-plays the snake heuristic or, with ``--checkpoint-dir``, the trained value
-net at its leaves. The other subcommands, algorithms and flags exist with
-the JAX CLI's names and say that they are not yet ported. The table backend
+Ported so far: ``bench``, ``train --algo a3c|ppo|afterstate|ntuple`` (with
+checkpoints and resume; ``--parity`` for a3c, ``--afterstate`` for ppo) and
+``eval --algo a3c|ppo|search|ntuple`` (``--sample`` for a3c and ppo), where
+``search`` plays the snake heuristic or, with ``--checkpoint-dir``, a
+trained value net at its leaves: a PPO checkpoint's afterstate critic where
+it has one. The other subcommands, algorithms and flags exist with the JAX
+CLI's names and say that they are not yet ported. The table backend
 ``torch`` is the JAX CLI's ``xla``. Everything runs on ``cuda`` unless
 ``--device cpu`` is given.
 """
@@ -40,11 +45,10 @@ def _not_ported(what: str):
 
 
 def _cmd_train(args: argparse.Namespace) -> int:
-    if args.algo not in ("afterstate", "ntuple"):
+    if args.algo in ("dqn", "ddpg"):
         raise SystemExit(f"train --algo {args.algo} is not yet ported to rein48_tpu_torch")
-    for flag in ("mesh", "parity"):
-        if getattr(args, flag):
-            raise SystemExit(f"train --{flag} is not yet ported to rein48_tpu_torch")
+    if args.mesh:
+        raise SystemExit("train --mesh is not yet ported to rein48_tpu_torch")
     from rein48_tpu_torch.utils.checkpoint import Checkpointer
     from rein48_tpu_torch.utils.metrics import MetricLogger
 
@@ -52,7 +56,23 @@ def _cmd_train(args: argparse.Namespace) -> int:
     logger = MetricLogger(log_dir=args.log_dir)
     run = dict(num_updates=args.updates, seed=args.seed, log_every=args.log_every, logger=logger, checkpointer=ckpt, device=args.device)
     try:
-        if args.algo == "afterstate":
+        if args.algo == "a3c":
+            from rein48_tpu_torch.train.a3c import A3CConfig, train_a3c
+
+            if args.parity:
+                config = A3CConfig.reference_parity(batch_size=args.batch_size)
+            else:
+                config = A3CConfig(batch_size=args.batch_size, unroll_len=args.unroll, model=args.model, learning_rate=args.lr)
+            _, history = train_a3c(config, **run)
+        elif args.algo == "ppo":
+            from rein48_tpu_torch.train.ppo import PPOConfig, train_ppo
+
+            config = PPOConfig(
+                batch_size=args.batch_size, unroll_len=args.unroll, model=args.model, learning_rate=args.lr,
+                afterstate_critic=args.afterstate, after_model=args.model,
+            )
+            _, history = train_ppo(config, **run)
+        elif args.algo == "afterstate":
             from rein48_tpu_torch.train.afterstate import AfterstateTDConfig, train_afterstate_td
 
             config = AfterstateTDConfig(
@@ -81,13 +101,13 @@ def _cmd_train(args: argparse.Namespace) -> int:
     return 0
 
 
-def _model_kwargs(saved: dict) -> dict:
-    """``model_kwargs`` of a saved afterstate config (pairs as JSON lists;
-    a dtype saved as its ``str``, e.g. ``"torch.float32"``)."""
+def _model_kwargs(saved: dict, field: str = "model_kwargs") -> dict:
+    """A net's keyword arguments from a saved trainer config (pairs as JSON
+    lists; a dtype saved as its ``str``, e.g. ``"torch.float32"``)."""
     import torch
 
     out = {}
-    for key, value in saved.get("model_kwargs", ()):
+    for key, value in saved.get(field, ()):
         if key == "dtype" and isinstance(value, str):
             value = getattr(torch, value.rsplit(".", 1)[-1])
         out[key] = value
@@ -95,11 +115,11 @@ def _model_kwargs(saved: dict) -> dict:
 
 
 def _cmd_eval(args: argparse.Namespace) -> int:
-    if args.algo not in ("search", "ntuple"):
-        raise SystemExit(f"eval --algo {args.algo} is not yet ported to rein48_tpu_torch")
-    if args.sample:
-        raise SystemExit("eval --sample is not yet ported to rein48_tpu_torch")
+    if args.algo == "dqn":
+        raise SystemExit("eval --algo dqn is not yet ported to rein48_tpu_torch")
     from rein48_tpu_torch.device import resolve_device
+    from rein48_tpu_torch.models import nets
+    from rein48_tpu_torch.train import common
     from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
     device = resolve_device(args.device)
@@ -113,6 +133,27 @@ def _cmd_eval(args: argparse.Namespace) -> int:
 
     def setting(flag_value, key, default):
         return flag_value if flag_value is not None else saved.get(key, default)
+
+    obs_encoding = setting(args.obs_encoding, "obs_encoding", "onehot")
+    if args.algo in ("a3c", "ppo"):
+        import torch
+
+        from rein48_tpu_torch.train.evaluate import evaluate_policy
+
+        # The policy net; a PPO checkpoint's afterstate critic is for search.
+        model = nets.make_model(
+            setting(args.model, "model", "resnet"), in_channels=common.obs_channels(obs_encoding),
+            generator=torch.Generator().manual_seed(0), **_model_kwargs(saved),
+        )
+        if ckpt is not None:
+            model.load_state_dict(ckpt.restore_field("model"))
+            print(f"restored step {ckpt.latest_step()}", file=sys.stderr)
+        stats = evaluate_policy(
+            model.to(device).eval(), obs_encoding=obs_encoding, num_envs=args.num_envs, num_steps=args.max_steps,
+            seed=args.seed, greedy=not args.sample, protocol=args.protocol, device=device,
+        )
+        print(json.dumps(stats))
+        return 0
 
     eval_kw = dict(
         depth=args.depth, num_envs=args.num_envs, num_steps=args.max_steps, seed=args.seed,
@@ -145,12 +186,17 @@ def _cmd_eval(args: argparse.Namespace) -> int:
             if getattr(args, flag) is not None:
                 raise SystemExit(f"eval --{flag.replace('_', '-')} needs --checkpoint-dir")
     else:
-        from rein48_tpu_torch.models import nets
-
-        model = nets.make_model(setting(args.model, "model", "resnet"), **_model_kwargs(saved))
-        model.load_state_dict(ckpt.restore_field("model"))
+        if saved.get("afterstate_critic"):
+            # A PPO checkpoint's co-trained afterstate critic is the leaf the
+            # planner's backups are consistent with.
+            name, kwargs, field = saved.get("after_model", "resnet"), _model_kwargs(saved, "after_model_kwargs"), "after_model"
+            print("using afterstate-critic leaf", file=sys.stderr)
+        else:
+            name, kwargs, field = setting(args.model, "model", "resnet"), _model_kwargs(saved), "model"
+        model = nets.make_model(name, in_channels=common.obs_channels(obs_encoding), **kwargs)
+        model.load_state_dict(ckpt.restore_field(field))
         leaf = dict(
-            obs_encoding=setting(args.obs_encoding, "obs_encoding", "onehot"),
+            obs_encoding=obs_encoding,
             gamma=setting(args.gamma, "gamma", 0.99),
             reward_transform=setting(args.reward_transform, "reward_transform", "log2"),
         )
@@ -222,13 +268,13 @@ def build_parser() -> argparse.ArgumentParser:
     for name in ("play", "parity"):
         sub.add_parser(name, help=f"{name} (not yet ported)").set_defaults(fn=_not_ported(name))
 
-    pt = sub.add_parser("train", help="train an agent (ported: --algo afterstate, ntuple)")
+    pt = sub.add_parser("train", help="train an agent (ported: --algo a3c, ppo, afterstate, ntuple)")
     pt.add_argument("--algo", choices=("a3c", "ppo", "dqn", "ddpg", "ntuple", "afterstate"), default="a3c")
-    pt.add_argument("--model", default="resnet", help="--algo afterstate: the value net")
+    pt.add_argument("--model", default="resnet", help="mlp | cnn | resnet (afterstate: the value net)")
     pt.add_argument("--updates", type=int, default=200)
     pt.add_argument("--batch-size", type=int, default=4096)
     pt.add_argument("--unroll", type=int, default=32)
-    pt.add_argument("--lr", type=float, default=3e-4, help="--algo afterstate: learning rate")
+    pt.add_argument("--lr", type=float, default=3e-4, help="learning rate (not ntuple)")
     pt.add_argument("--alpha", type=float, default=None, help="TD learning rate (default: the trainer's)")
     pt.add_argument("--update-mode", choices=("step", "delayed"), default="step")
     pt.add_argument(
@@ -241,8 +287,9 @@ def build_parser() -> argparse.ArgumentParser:
         "auto takes mxu on cuda when every table qualifies",
     )
     pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--afterstate", action="store_true", help="ppo only: co-train an afterstate value net (planner leaf)")
     pt.add_argument("--mesh", action="store_true", help="not yet ported")
-    pt.add_argument("--parity", action="store_true", help="not yet ported")
+    pt.add_argument("--parity", action="store_true", help="a3c only: the reference-parity regime")
     pt.add_argument("--log-dir", default=None)
     pt.add_argument("--log-every", type=int, default=10)
     pt.add_argument("--checkpoint-dir", default=None, help="save here, and resume from the latest checkpoint here")
@@ -250,7 +297,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--device", default=None, help="cuda (default) or cpu")
     pt.set_defaults(fn=_cmd_train)
 
-    pe = sub.add_parser("eval", help="evaluate the expectimax planner or n-tuple tables")
+    pe = sub.add_parser("eval", help="evaluate a trained policy, the expectimax planner or n-tuple tables")
     pe.add_argument("--algo", choices=("a3c", "ppo", "dqn", "search", "ntuple"), default="a3c")
     # None: the config saved with the checkpoint decides, then the default.
     pe.add_argument("--model", default=None)
@@ -258,7 +305,10 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--gamma", type=float, default=None)
     pe.add_argument("--reward-transform", default=None)
     pe.add_argument("--depth", type=int, default=1, help="expectimax depth (ntuple depth 0: the greedy afterstate policy)")
-    pe.add_argument("--checkpoint-dir", default=None, help="search: a value-net leaf from an afterstate checkpoint")
+    pe.add_argument(
+        "--checkpoint-dir", default=None,
+        help="a3c/ppo: the trained policy (a fresh init without); search: the trained value net as the leaf",
+    )
     pe.add_argument("--num-envs", type=int, default=512)
     pe.add_argument("--max-steps", type=int, default=4096)
     pe.add_argument("--seed", type=int, default=0)

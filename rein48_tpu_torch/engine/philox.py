@@ -33,6 +33,16 @@ actions, never on the batch it runs in (the property ``rein48_tpu``'s
 ``core.EnvState`` promises for its per-env keys). The numbers differ from
 threefry's: the tests feed both packages the same words instead.
 
+Learner streams. A trainer's own randomness (its shuffles, its exploration
+draws, its action-sampling noise, its dropout masks) comes from the same
+function under the same key, with the counter ``(block mod 2**32,
+update_step, purpose, LEARNER_TAG)``. ``LEARNER_TAG`` is nonzero and an env
+stream's last counter word is ``env >> 32``, which is 0 for any batch under
+2**32 games, so no env stream reaches a learner block. A draw is therefore
+named by ``(seed, update_step, purpose)`` and a draw index, and a state that
+holds the seed and the step as integers resumes the same draws on any
+device. Each draw is one call over a whole update's or phase's words.
+
 Words are carried as ``int64`` holding values in ``[0, 2**32)``: CPU torch
 has no ``>>`` on ``uint32``, and the 32x32-bit products are taken in
 16-bit limbs so that no intermediate overflows a signed 64-bit integer.
@@ -40,10 +50,18 @@ has no ``>>`` on ``uint32``, and the 32x32-bit products are taken in
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 WORDS_PER_STEP = 5
 ACTION, SPAWN_RANK, SPAWN_VALUE, RESET_RANK, RESET_VALUE = range(WORDS_PER_STEP)
+
+# The last counter word of every learner block ("LRNR").
+LEARNER_TAG = 0x4C524E52
+# Learner purposes: the high 16 bits of the third counter word; the low 16
+# bits number the draws of one purpose within an update (an epoch).
+SHUFFLE, EPSILON, SAMPLE, DROPOUT = 1, 2, 3, 4
 
 MASK32 = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53
@@ -123,3 +141,46 @@ def philox_bits(
     step = torch.arange(start_step, start_step + num_steps, dtype=torch.int64, device=device)
     words = step_words(seed, env[None, :], step[:, None])  # [T, B, 5]
     return words.permute(0, 2, 1).contiguous()
+
+
+def learner_words(seed: int, update_step: int, purpose: int, shape, *, index: int = 0, device=None) -> torch.Tensor:
+    """Words of the learner stream ``(seed, update_step, purpose, index)``.
+
+    Returns int64 of ``shape`` in ``[0, 2**32)``: the stream's first
+    ``prod(shape)`` words, block by block, in row-major order.
+    """
+    if not (0 <= seed < 1 << 64 and 0 <= update_step <= MASK32 and 0 <= index <= 0xFFFF):
+        raise ValueError(f"learner stream out of range: seed {seed}, update_step {update_step}, index {index}")
+    n = math.prod(shape)
+    blocks = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
+
+    def word(v):
+        return torch.tensor(v & MASK32, dtype=torch.int64, device=device)
+
+    words = philox4x32(
+        blocks, word(update_step), word((purpose << 16) | index), word(LEARNER_TAG), word(seed), word(seed >> 32)
+    )
+    return torch.stack(torch.broadcast_tensors(*words), dim=-1).flatten()[:n].reshape(shape)
+
+
+def uniform_from_words(words: torch.Tensor) -> torch.Tensor:
+    """float32 in ``[0, 1)``: the top 24 bits of each word times ``2**-24`` (exact)."""
+    return (words >> 8).to(torch.float32) * 2.0**-24
+
+
+def open_uniform_from_words(words: torch.Tensor) -> torch.Tensor:
+    """float32 in ``(0, 1)``: the odd multiples of ``2**-24`` from the top 23
+    bits (exact), so that neither ``log(u)`` nor ``log(1 - u)`` is infinite."""
+    return ((words >> 9) * 2 + 1).to(torch.float32) * 2.0**-24
+
+
+def learner_uniform(seed: int, update_step: int, purpose: int, shape, *, index: int = 0, device=None) -> torch.Tensor:
+    """float32 uniforms in ``[0, 1)`` of the learner stream, one per word."""
+    return uniform_from_words(learner_words(seed, update_step, purpose, shape, index=index, device=device))
+
+
+def learner_gumbel(seed: int, update_step: int, shape, *, device=None) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` of the ``SAMPLE`` stream:
+    ``argmax(logits + noise)`` samples ``softmax(logits)``."""
+    u = open_uniform_from_words(learner_words(seed, update_step, SAMPLE, shape, device=device))
+    return -torch.log(-torch.log(u))

@@ -5,13 +5,14 @@
 The inputs are the JAX parameters with their leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 
-* Flax ``ResNetPolicy``: convolution kernels go from HWIO to OIHW and
-  dense kernels from ``[in, out]`` to ``[out, in]``. The port's heads
-  flatten channels last in the same (h, w, c) order as Flax, so no dense
-  weight is permuted.
-* Afterstate-TD trainer state: the ``ResNetPolicy`` parameters as above,
-  and optax Adam's ``mu``/``nu`` (trees shaped as the parameters, so they
-  map the same way) and ``count`` into the port's optimizer.
+* Flax ``A3CMLP``, ``CNNPolicy`` and ``ResNetPolicy``: convolution kernels
+  go from HWIO to OIHW and dense kernels from ``[in, out]`` to ``[out,
+  in]``. The port's nets flatten channels last in the same (h, w, c) order
+  as Flax, so no dense weight is permuted.
+* Trainer states (afterstate TD, PPO with one net or the ``{"policy",
+  "after"}`` pair, A3C): the parameters as above, optax's ``mu``/``nu``
+  (trees shaped as the parameters, so they map the same way) and ``count``
+  into the port's optimizer, and the env's boards and episode counters.
 * N-tuple tables: the same keys and flat float32 tables. The ``"cached"``
   backend's permutation state comes across as int32 beside them:
   ``t{i}_rm``, one physical row per logical row of 128 entries (a
@@ -28,7 +29,9 @@ from typing import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
+from rein48_tpu_torch.models import nets
 from rein48_tpu_torch.models.nets import ResNetPolicy
 
 
@@ -47,6 +50,28 @@ def _norm(p, prefix):
     return {f"{prefix}.scale": np.asarray(p["scale"]), f"{prefix}.bias": np.asarray(p["bias"])}
 
 
+def _tensors(out) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in out.items()}
+
+
+def mlp_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`A3CMLP` from a Flax ``params`` tree."""
+    out = {}
+    for name in ("actor_fc", "actor_out", "critic_fc", "critic_out"):
+        out.update(_dense(params[name], name))
+    return _tensors(out)
+
+
+def cnn_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`CNNPolicy` from a Flax ``params`` tree."""
+    out = {}
+    for i in range(sum(1 for k in params if k.startswith("conv"))):
+        out.update(_conv(params[f"conv{i}"], f"convs.{i}"))
+    for name in ("policy", "value"):
+        out.update(_dense(params[name], name))
+    return _tensors(out)
+
+
 def params_from_flax(params) -> dict[str, torch.Tensor]:
     """``state_dict`` of :class:`ResNetPolicy` from a Flax ``params`` tree."""
     out = {}
@@ -61,36 +86,111 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
     out.update(_norm(params["LayerNorm_0"], "norm"))
     for name in ("policy_fc", "policy_out", "value_fc", "value_out"):
         out.update(_dense(params[name], name))
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in out.items()}
+    return _tensors(out)
+
+
+_LOADERS = {"mlp": mlp_params_from_flax, "cnn": cnn_params_from_flax, "resnet": params_from_flax}
+_NAMES = {nets.A3CMLP: "mlp", nets.CNNPolicy: "cnn", nets.ResNetPolicy: "resnet"}
+
+
+def _shape_kwargs(name: str, params) -> dict:
+    """The constructor arguments that the Flax parameters' shapes fix."""
+    if name == "mlp":
+        kernel = np.asarray(params["actor_fc"]["kernel"])
+        return {"hidden": kernel.shape[1], "in_channels": kernel.shape[0] // 16}
+    if name == "cnn":
+        n = sum(1 for k in params if k.startswith("conv"))
+        kernels = [np.asarray(params[f"conv{i}"]["kernel"]) for i in range(n)]
+        return {"channels": tuple(k.shape[-1] for k in kernels), "in_channels": kernels[0].shape[2]}
+    kernel = np.asarray(params["stem"]["kernel"])
+    num_blocks = sum(1 for k in params if k.startswith("block"))
+    return {"channels": kernel.shape[-1], "num_blocks": num_blocks, "in_channels": kernel.shape[2]}
+
+
+def model_from_flax(name: str, params, **kwargs) -> nn.Module:
+    """The net ``make_model(name)`` holding the Flax parameters (on the CPU).
+
+    Widths come from the parameters' shapes; ``kwargs`` sets the rest
+    (``dtype``, the MLP's parity flags). Raises ``ValueError`` for a name
+    that ``make_model`` does not know.
+    """
+    if name not in _LOADERS:
+        raise ValueError(f"unknown model '{name}'; choose from {sorted(_LOADERS)}")
+    model = nets.make_model(name, **{**_shape_kwargs(name, params), **kwargs})
+    model.load_state_dict(_LOADERS[name](params))
+    return model
+
+
+def state_dict_from_flax(module: nn.Module, params) -> dict[str, torch.Tensor]:
+    """``module``'s ``state_dict`` from Flax parameters of the same net."""
+    return _LOADERS[_NAMES[type(module)]](params)
 
 
 def resnet_from_flax(params, dtype=torch.bfloat16) -> ResNetPolicy:
     """A :class:`ResNetPolicy` holding the Flax parameters (on the CPU)."""
-    channels = int(np.asarray(params["stem"]["kernel"]).shape[-1])
-    num_blocks = sum(1 for k in params if k.startswith("block"))
-    model = ResNetPolicy(channels=channels, num_blocks=num_blocks, dtype=dtype)
-    model.load_state_dict(params_from_flax(params))
-    return model
+    return model_from_flax("resnet", params, dtype=dtype)
 
 
-def afterstate_state_from_jax(state, params, *, mu=None, nu=None, count=None):
+def _load_trainer_state(state, modules, params, moments, count, env):
+    """Load ``params`` (a tree per module) into ``modules``, the optimizer's
+    ``moments`` (name -> a tree per module, shaped as the parameters) and
+    ``count`` into ``state.optimizer`` in the order of its parameters, and
+    the JAX env's fields into ``state.env``."""
+    for module, tree in zip(modules, params):
+        module.load_state_dict(state_dict_from_flax(module, tree))
+    if moments:
+        lists = {m: [] for m in moments}
+        for i, module in enumerate(modules):
+            names = [n for n, _ in module.named_parameters()]
+            for m, trees in moments.items():
+                sd = state_dict_from_flax(module, trees[i])
+                lists[m] += [sd[n] for n in names]
+        state.optimizer.load_state_dict({"name": state.optimizer.name, "count": int(count or 0), **lists})
+    if env is not None:
+        for name in ("boards", "score", "steps", "done"):
+            dst = getattr(state.env, name)
+            dst.copy_(torch.from_numpy(np.array(env[name])).to(dst.dtype))
+    return state
+
+
+def _trees(tree, critic: bool):
+    return [tree["policy"], tree["after"]] if critic else [tree]
+
+
+def _load(state, modules, params, mu, nu, count, env, critic=False):
+    moments = {m: _trees(t, critic) for m, t in (("mu", mu), ("nu", nu)) if t is not None}
+    return _load_trainer_state(state, modules, _trees(params, critic), moments, count, env)
+
+
+def afterstate_state_from_jax(state, params, *, mu=None, nu=None, count=None, env=None):
     """Load a JAX ``AfterstateTDState``'s parameters, and optionally its
-    optax Adam state, into the port's ``AfterstateTDState`` ``state``.
+    optax state and env, into the port's ``AfterstateTDState`` ``state``.
 
     ``params``, ``mu`` and ``nu`` are Flax trees with numpy leaves and
-    ``count`` the Adam step count (``opt_state[1][0]`` of the JAX trainer's
-    ``chain(clip, adam)``); ``state``'s optimizer must be ``adam`` or
-    ``adamw``. The tensors are copied onto ``state``'s device; the env and
-    the generator are left as they are. Returns ``state``.
+    ``count`` the step count (``opt_state[1][0]`` of the JAX trainer's
+    ``chain(clip, adam)``); the moments given must be those of ``state``'s
+    optimizer (``mu`` and ``nu`` for adam, ``nu`` alone for rmsprop).
+    ``env`` maps the JAX ``EnvState``'s ``boards``, ``score``, ``steps`` and
+    ``done`` to numpy arrays; the port's Philox counters stay as they are.
+    The tensors are copied onto ``state``'s device. Returns ``state``.
     """
-    state.model.load_state_dict(params_from_flax(params))
-    if mu is not None:
-        names = [n for n, _ in state.model.named_parameters()]
-        moments = {"mu": params_from_flax(mu), "nu": params_from_flax(nu)}
-        state.optimizer.load_state_dict(
-            {"name": state.optimizer.name, "count": int(count), **{m: [t[n] for n in names] for m, t in moments.items()}}
-        )
-    return state
+    return _load(state, [state.model], params, mu, nu, count, env)
+
+
+def ppo_state_from_jax(state, params, *, mu=None, nu=None, count=None, env=None):
+    """Load a JAX ``PPOTrainState`` into the port's ``PPOTrainState``, as
+    :func:`afterstate_state_from_jax`. With an afterstate critic the trees
+    are JAX's ``{"policy": ..., "after": ...}`` pairs; they load into
+    ``state.model`` and ``state.after_model`` under the one optimizer."""
+    if state.after_model is None:
+        return _load(state, [state.model], params, mu, nu, count, env)
+    return _load(state, [state.model, state.after_model], params, mu, nu, count, env, critic=True)
+
+
+def a3c_state_from_jax(state, params, *, mu=None, nu=None, count=None, env=None):
+    """Load a JAX ``A3CTrainState`` into the port's ``A3CTrainState``, as
+    :func:`afterstate_state_from_jax`."""
+    return _load(state, [state.model], params, mu, nu, count, env)
 
 
 _NTUPLE_KEY = re.compile(r"t(\d+)(_E|_A|_rm|_hot)?")

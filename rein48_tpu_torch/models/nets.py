@@ -2,18 +2,21 @@
 # SPDX-License-Identifier: Apache-2.0
 """Policy/value networks (port of ``models/nets.py``).
 
-Only the flagship :class:`ResNetPolicy` is ported so far; the other nets
-of the JAX package wait for the trainer slices that use them, and
-:func:`make_model` says so.
+* :class:`A3CMLP`: the reference A3C's two-tower MLP (float32), with its
+  quirks behind the JAX package's flags.
+* :class:`CNNPolicy`: two 2x2 ``VALID`` convolutions and linear policy and
+  value heads.
+* :class:`ResNetPolicy`: the flagship residual policy+value tower.
 
 The modules keep the Flax layout at their public edge: they take the
-one-hot ``[..., 4, 4, 16]`` observation (channels last) and return
-``(logits float32[..., 4], value float32[...])``. Inside, activations stay
-channels last: a convolution sees them as NCHW with channels-last
-strides, which is the layout cuDNN wants, and the heads flatten in the
-(h, w, c) order the Flax nets use. Parameters are float32 and computation
-runs in ``dtype`` (bfloat16 by default), as ``dtype=jnp.bfloat16`` does in
-Flax; the layer norms reduce in float32.
+``[..., 4, 4, C]`` observation (channels last; ``C`` is 16 for the one-hot
+planes, 1 for the other encodings, ``in_channels`` here where Flax infers
+it) and return ``(logits float32[..., 4], value float32[...])``. Inside,
+activations stay channels last: a convolution sees them as NCHW with
+channels-last strides, which is the layout cuDNN wants, and the heads
+flatten in the (h, w, c) order the Flax nets use. Parameters are float32
+and computation runs in ``dtype``, as ``dtype=`` does in Flax; the layer
+norms reduce in float32.
 """
 
 from __future__ import annotations
@@ -58,14 +61,15 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-class Conv3x3(nn.Module):
-    """3x3 ``SAME`` convolution on channels-last ``[N, 4, 4, C]`` tensors."""
+class Conv(nn.Module):
+    """Square convolution on channels-last ``[N, H, W, C]`` tensors: 3x3
+    ``SAME`` (``padding=1``) or ``VALID`` (``padding=0``)."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.bfloat16):
+    def __init__(self, cin: int, cout: int, dtype=torch.bfloat16, size: int = 3, padding: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))  # OIHW
+        self.weight = nn.Parameter(torch.empty(cout, cin, size, size))  # OIHW
         self.bias = nn.Parameter(torch.zeros(cout))
-        self.dtype = dtype
+        self.dtype, self.padding = dtype, padding
 
     def reset_parameters(self, generator=None) -> None:
         _lecun_normal_(self.weight, self.weight[0].numel(), generator)
@@ -78,7 +82,7 @@ class Conv3x3(nn.Module):
             x.to(self.dtype).permute(0, 3, 1, 2),
             self.weight.to(self.dtype, memory_format=torch.channels_last),
             self.bias.to(self.dtype),
-            padding=1,
+            padding=self.padding,
         )
         return y.permute(0, 2, 3, 1)
 
@@ -100,15 +104,109 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype))
 
 
+def _reset(module: nn.Module, generator) -> None:
+    """Flax's default init (lecun normal, zero bias) of every layer."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Dense)):
+            m.reset_parameters(generator)
+
+
+class A3CMLP(nn.Module):
+    """Reference-parity two-tower MLP (``nets.py:44-82``).
+
+    flatten -> [actor] dense ``hidden``, relu6, dropout, dense 4, relu
+    (``parity_relu_head``); [critic] dense ``hidden``, relu6, dropout,
+    dense 1. Xavier-uniform kernels, zero biases. The reference's dropout
+    is a no-op (``parity_noop_dropout``, the default); with it off and
+    ``dropout_uniforms`` given, a unit is kept where its uniform is below
+    ``1 - dropout_rate`` and scaled by ``1 / (1 - dropout_rate)``, as Flax's
+    ``nn.Dropout`` does with its own bits.
+    """
+
+    def __init__(
+        self,
+        hidden: int = 64,
+        dropout_rate: float = 0.4,
+        parity_noop_dropout: bool = True,
+        parity_relu_head: bool = True,
+        dtype=torch.float32,
+        generator=None,
+        in_channels: int = 16,
+    ):
+        super().__init__()
+        self.hidden, self.dropout_rate, self.dtype = hidden, dropout_rate, dtype
+        self.parity_noop_dropout, self.parity_relu_head = parity_noop_dropout, parity_relu_head
+        features = 16 * in_channels
+        self.actor_fc = Dense(features, hidden, dtype)
+        self.actor_out = Dense(hidden, NUM_ACTIONS, dtype)
+        self.critic_fc = Dense(features, hidden, dtype)
+        self.critic_out = Dense(hidden, 1, dtype)
+        for m in (self.actor_fc, self.actor_out, self.critic_fc, self.critic_out):
+            nn.init.xavier_uniform_(m.weight, generator=generator)
+            nn.init.zeros_(m.bias)
+
+    @property
+    def dropout_active(self) -> bool:
+        """Whether a training forward draws dropout masks."""
+        return not self.parity_noop_dropout and self.dropout_rate > 0.0
+
+    def _dropout(self, x: torch.Tensor, u: torch.Tensor | None) -> torch.Tensor:
+        if u is None or not self.dropout_active:
+            return x
+        keep = 1.0 - self.dropout_rate
+        return torch.where(u.reshape(x.shape) < keep, x / keep, torch.zeros_like(x))
+
+    def forward(self, obs: torch.Tensor, dropout_uniforms: torch.Tensor | None = None):
+        """``dropout_uniforms``: float ``[2, N, hidden]`` in [0, 1) (actor,
+        critic) for a training forward of ``N`` boards; None is ``train=False``."""
+        lead = obs.shape[:-3]
+        x = obs.reshape(lead + (-1,)).to(self.dtype)
+        u = (None, None) if dropout_uniforms is None else dropout_uniforms
+        a = self._dropout(F.relu6(self.actor_fc(x)), u[0])
+        logits = self.actor_out(a)
+        if self.parity_relu_head:
+            logits = F.relu(logits)
+        c = self._dropout(F.relu6(self.critic_fc(x)), u[1])
+        value = self.critic_out(c)
+        return logits.to(torch.float32), value.to(torch.float32).squeeze(-1)
+
+
+class CNNPolicy(nn.Module):
+    """The reference DDPG actor's CNN with a value head (``nets.py:85-106``).
+
+    conv 2x2 ``VALID`` 32, relu, conv 2x2 ``VALID`` 64, relu, flatten (h, w,
+    c: 256 features), dense 4 logits and dense 1 value; compute in ``dtype``.
+    """
+
+    def __init__(self, channels=(32, 64), dtype=torch.bfloat16, generator=None, in_channels: int = 16):
+        super().__init__()
+        self.dtype = dtype
+        cins = (in_channels,) + tuple(channels[:-1])
+        self.convs = nn.ModuleList(Conv(i, o, dtype, size=2, padding=0) for i, o in zip(cins, channels))
+        flat = (4 - len(channels)) ** 2 * channels[-1]
+        self.policy = Dense(flat, NUM_ACTIONS, dtype)
+        self.value = Dense(flat, 1, dtype)
+        _reset(self, generator)
+
+    def forward(self, obs: torch.Tensor):
+        lead = obs.shape[:-3]
+        x = obs.reshape((-1,) + obs.shape[-3:])
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        flat = x.flatten(1)
+        logits, value = self.policy(flat), self.value(flat)
+        return logits.to(torch.float32).reshape(lead + (NUM_ACTIONS,)), value.to(torch.float32).reshape(lead)
+
+
 class ResBlock(nn.Module):
     """Pre-activation residual block (LayerNorm -> relu -> conv) x2."""
 
     def __init__(self, channels: int, dtype=torch.bfloat16):
         super().__init__()
         self.norm0 = LayerNorm(channels, dtype)
-        self.conv0 = Conv3x3(channels, channels, dtype)
+        self.conv0 = Conv(channels, channels, dtype)
         self.norm1 = LayerNorm(channels, dtype)
-        self.conv1 = Conv3x3(channels, channels, dtype)
+        self.conv1 = Conv(channels, channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv0(F.relu(self.norm0(x)))
@@ -124,10 +222,10 @@ class ResNetPolicy(nn.Module):
     value head (dense ``channels``, relu, dense 1).
     """
 
-    def __init__(self, channels: int = 64, num_blocks: int = 4, dtype=torch.bfloat16, generator=None):
+    def __init__(self, channels: int = 64, num_blocks: int = 4, dtype=torch.bfloat16, generator=None, in_channels: int = 16):
         super().__init__()
         self.channels, self.num_blocks, self.dtype = channels, num_blocks, dtype
-        self.stem = Conv3x3(16, channels, dtype)
+        self.stem = Conv(in_channels, channels, dtype)
         self.blocks = nn.ModuleList(ResBlock(channels, dtype) for _ in range(num_blocks))
         self.norm = LayerNorm(channels, dtype)
         flat = 16 * channels
@@ -135,9 +233,7 @@ class ResNetPolicy(nn.Module):
         self.policy_out = Dense(channels, NUM_ACTIONS, dtype)
         self.value_fc = Dense(flat, channels, dtype)
         self.value_out = Dense(channels, 1, dtype)
-        for m in self.modules():
-            if isinstance(m, (Conv3x3, Dense)):
-                m.reset_parameters(generator)
+        _reset(self, generator)
 
     def forward(self, obs: torch.Tensor):
         lead = obs.shape[:-3]
@@ -153,15 +249,13 @@ class ResNetPolicy(nn.Module):
         )
 
 
-_MODELS = {"resnet": ResNetPolicy}
-_NOT_YET_PORTED = ("mlp", "cnn", "qnet")
+_MODELS = {"mlp": A3CMLP, "cnn": CNNPolicy, "resnet": ResNetPolicy}
 
 
 def make_model(name: str, **kwargs) -> nn.Module:
-    """Model registry for the CLI (``resnet``; the rest are not yet ported)."""
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"model '{name}' is not yet ported to rein48_tpu_torch; use 'resnet'")
+    """Model registry (``mlp | cnn | resnet``, as in the JAX package)."""
     try:
-        return _MODELS[name](**kwargs)
+        cls = _MODELS[name]
     except KeyError:
         raise ValueError(f"unknown model '{name}'; choose from {sorted(_MODELS)}") from None
+    return cls(**kwargs)

@@ -17,9 +17,10 @@ and the optimizer's moments are updated in place. Acting runs under
 ``torch.no_grad`` (tensors made under ``inference_mode`` could not enter the
 learn phase's autograd graph). Randomness: the env's spawns come from its
 Philox streams (``engine/vector.py``); the shuffles and the epsilon draws
-from the state's ``generator``, which lives on the device. Each phase
-takes the same draws injected instead. Nothing in an update reads a value
-back to the host.
+from the learner's streams of the same seed, named by the update step
+(``engine/philox.py``), one draw per phase. Each phase takes the same
+draws injected instead. Nothing in an update reads a value back to the
+host.
 """
 
 from __future__ import annotations
@@ -34,15 +35,10 @@ from torch import nn
 from rein48_tpu_torch.agents import ppo as ppo_agent
 from rein48_tpu_torch.control import search
 from rein48_tpu_torch.device import resolve_device
-from rein48_tpu_torch.engine import core, vector
+from rein48_tpu_torch.engine import core, philox, vector
 from rein48_tpu_torch.engine.core import RewardMode
 from rein48_tpu_torch.models import nets
 from rein48_tpu_torch.train import common
-
-# Offsets the learner generator's seed from the one that initialises the
-# parameters, so that on the CPU the two are not the same stream.
-_LEARNER_SEED_OFFSET = 1 << 32
-
 
 @dataclasses.dataclass(frozen=True)
 class AfterstateTDConfig:
@@ -74,7 +70,9 @@ class AfterstateTDConfig:
     shard_friendly_perm: bool = True
 
     def make_model(self, generator: torch.Generator | None = None) -> nn.Module:
-        return nets.make_model(self.model, generator=generator, **dict(self.model_kwargs))
+        return nets.make_model(
+            self.model, generator=generator, in_channels=common.obs_channels(self.obs_encoding), **dict(self.model_kwargs)
+        )
 
     def make_learning_rate(self):
         """The learning rate, or a cosine schedule over the optimizer's steps."""
@@ -92,34 +90,32 @@ class AfterstateTDState:
         model: the value net (its parameters, updated in place).
         optimizer: the optimizer over ``model``'s parameters, with its moments.
         env: the ``[B]`` lockstep games (Philox ``seed``/``env_id``/``counter``).
-        generator: the learner's generator on the device (shuffles, epsilon).
+        seed: the key of the learner's streams (shuffles, epsilon draws).
         update_step: updates taken (a host int).
     """
 
     model: nn.Module
     optimizer: common.Optimizer
     env: core.EnvState
-    generator: torch.Generator
+    seed: int
     update_step: int
 
 
 def init_afterstate_td(
     config: AfterstateTDConfig, seed: int, device=None
 ) -> Tuple[AfterstateTDState, nn.Module, common.Optimizer]:
-    """Fresh parameters (drawn on the CPU, so equal on every device),
-    ``batch_size`` games and a learner generator, all from ``seed``."""
+    """Fresh parameters (drawn on the CPU, so equal on every device) and
+    ``batch_size`` games from ``seed``, which also keys the learner's draws."""
     device = resolve_device(device)
     model = config.make_model(torch.Generator().manual_seed(seed)).to(device)
     optimizer = common.make_optimizer(
         config.optimizer, config.make_learning_rate(), list(model.parameters()), max_grad_norm=config.max_grad_norm
     )
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed + _LEARNER_SEED_OFFSET)
     state = AfterstateTDState(
         model=model,
         optimizer=optimizer,
         env=vector.reset_batch(seed, config.batch_size, device),
-        generator=generator,
+        seed=seed,
         update_step=0,
     )
     return state, model, optimizer
@@ -195,6 +191,8 @@ class AfterstateTDStep:
         T, B = cfg.unroll_len, cfg.batch_size
         env = state.env
         rows = torch.arange(B, device=env.boards.device)
+        if cfg.epsilon > 0.0 and draws is None:
+            draws = philox.learner_uniform(state.seed, state.update_step, philox.EPSILON, (T, 2, B), device=rows.device)
         after_boards, rewards, dones, values = [], [], [], []
         episodes, tile_sum, length, best = [], [], [], []
         for t in range(T):
@@ -203,10 +201,7 @@ class AfterstateTDStep:
             masked = torch.where(all_illegal, 0.0, torch.where(legal, q, -torch.inf))
             actions = masked.argmax(-1)
             if cfg.epsilon > 0.0:
-                if draws is None:
-                    u = torch.rand((2, B), generator=state.generator, device=env.boards.device)
-                else:
-                    u = draws[t]
+                u = draws[t]
                 explore = u[0] < cfg.epsilon
                 actions = torch.where(explore, _legal_pick(legal | all_illegal, u[1]), actions)
             after_boards.append(after[rows, actions])
@@ -245,14 +240,14 @@ class AfterstateTDStep:
         }
         return env, batch, metrics
 
-    def permutations(self, generator: torch.Generator, device) -> torch.Tensor:
-        """One epoch's shuffle: ``[T, B]`` time indices per env (the
-        argsort of uniform draws) or, without ``shard_friendly_perm``, one
-        permutation of all ``T * B`` samples."""
-        T, B = self.config.unroll_len, self.config.batch_size
-        if self.config.shard_friendly_perm:
-            return torch.rand((T, B), generator=generator, device=device).argsort(0)
-        return torch.randperm(T * B, generator=generator, device=device)
+    def permutations(self, state: AfterstateTDState, device) -> torch.Tensor:
+        """The update's shuffles, one per epoch: ``[T, B]`` time indices per
+        env or, without ``shard_friendly_perm``, one permutation of all
+        ``T * B`` samples (``common.shuffles``)."""
+        cfg = self.config
+        return common.shuffles(
+            state.seed, state.update_step, cfg.num_epochs, cfg.unroll_len, cfg.batch_size, cfg.shard_friendly_perm, device
+        )
 
     def minibatches(self, batch: Dict[str, torch.Tensor], perm: torch.Tensor):
         """``(boards[M, N, 4, 4], targets[M, N])`` of one epoch's shuffle."""
@@ -270,14 +265,14 @@ class AfterstateTDStep:
         """``num_epochs`` x ``num_minibatches`` optimizer steps of MSE.
 
         ``perms`` (``num_epochs`` shuffles as :meth:`permutations` makes
-        them) replaces the generator's. Returns the last epoch's means of
+        them) replaces the learner stream's. Returns the last epoch's means of
         ``loss``, ``v_mean``, ``target_mean`` and ``grad_norm`` (the norm
         before clipping), as device scalars.
         """
         params = self.optimizer.params
-        device = batch["targets"].device
-        for epoch in range(self.config.num_epochs):
-            perm = perms[epoch] if perms is not None else self.permutations(state.generator, device)
+        if perms is None:
+            perms = self.permutations(state, batch["targets"].device)
+        for perm in perms:
             aux = []
             for boards, targets in zip(*self.minibatches(batch, perm)):
                 v = self.value(boards)

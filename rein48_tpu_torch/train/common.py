@@ -20,6 +20,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from rein48_tpu_torch.engine import philox
 from rein48_tpu_torch.models import obs as obs_lib
 
 OBS_ENCODERS = {
@@ -44,6 +45,11 @@ def encode_obs(boards: torch.Tensor, encoding: str) -> torch.Tensor:
     return x
 
 
+def obs_channels(encoding: str) -> int:
+    """Channels of ``encode_obs(boards, encoding)``: a model's input width."""
+    return obs_lib.NUM_PLANES if encoding == "onehot" else 1
+
+
 def transform_reward(reward: torch.Tensor, transform: str) -> torch.Tensor:
     """Reward shaping: ``identity``, ``log2`` (log2(1 + r)) or ``scaled`` (r / 256)."""
     if transform == "identity":
@@ -66,6 +72,24 @@ def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.
         return init_value * ((1.0 - alpha) * decay + alpha)
 
     return schedule
+
+
+def shuffles(
+    seed: int, update_step: int, num_epochs: int, unroll_len: int, batch_size: int, shard_friendly: bool, device
+) -> torch.Tensor:
+    """Every epoch's shuffle of one update, from one draw of the learner's
+    ``SHUFFLE`` stream (``engine/philox.py``).
+
+    With ``shard_friendly`` each epoch permutes the time axis within each
+    env: int64 ``[num_epochs, T, B]``, the stable argsort of the words over
+    time. Without, one permutation of all ``T * B`` samples per epoch:
+    ``[num_epochs, T * B]``. Stable sorts, so equal words order the same on
+    every device.
+    """
+    words = philox.learner_words(seed, update_step, philox.SHUFFLE, (num_epochs, unroll_len, batch_size), device=device)
+    if shard_friendly:
+        return words.argsort(dim=1, stable=True)
+    return words.reshape(num_epochs, -1).argsort(dim=-1, stable=True)
 
 
 def tree_norm(tensors: Sequence[torch.Tensor | None]) -> torch.Tensor:

@@ -23,7 +23,7 @@ import torch
 from rein48_tpu_torch.agents import a3c as a3c_agent
 from rein48_tpu_torch.control import search
 from rein48_tpu_torch.device import resolve_device
-from rein48_tpu_torch.engine import core, vector
+from rein48_tpu_torch.engine import core, philox, vector
 from rein48_tpu_torch.train import common
 
 _TILE_TIERS = (512, 1024, 2048, 4096, 8192, 16384)
@@ -77,7 +77,8 @@ def evaluate_policy(
     """Play ``num_envs`` games of ``model``'s policy for ``num_steps`` steps.
 
     Greedy is argmax over legal actions; otherwise actions are sampled
-    from the masked softmax with a generator seeded by ``seed``.
+    from the masked softmax by Gumbel-max over the Philox stream ``(seed,
+    step)`` (``engine/philox.learner_gumbel``), the same on every device.
     """
     device = resolve_device(device)
     state = vector.reset_batch(seed, num_envs, device)
@@ -87,17 +88,15 @@ def evaluate_policy(
         _, stats = _first_episode_rollout(state, policy_fn=greedy_policy(model, obs_encoding), num_steps=num_steps)
         return _to_floats(stats)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
     outs = []
-    for _ in range(num_steps):
+    for step in range(num_steps):
         out = model(common.encode_obs(state.boards, obs_encoding))
         logits = out[0] if isinstance(out, tuple) else out
         masked = a3c_agent.masked_logits(logits, core.legal_action_mask(state.boards))
         if greedy:
             actions = masked.argmax(-1)
         else:
-            actions = torch.multinomial(torch.softmax(masked, -1), 1, generator=gen)[:, 0]
+            actions = a3c_agent.sample_actions(philox.learner_gumbel(seed, step, masked.shape, device=device), masked)
         state, o = vector.step_autoreset(state, actions)
         outs.append(o)
     return _to_floats(_episode_stats(vector.stack_outputs(outs)))

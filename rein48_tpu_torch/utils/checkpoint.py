@@ -7,13 +7,13 @@ and reads no orbax checkpoint (JAX parameters come across through
 ``models/convert.py``). A checkpoint is ``<directory>/<step>/state.pt``, one
 ``torch.save`` of the state's fields: a module as its ``state_dict``, an
 optimizer as its ``state_dict``, an ``EnvState`` or a dict of tensors as
-tensors, a generator as its state, and plain values as they are. Tensors
-are stored on the CPU and restored onto the devices of the state they are
-restored into, so a run saved on one device resumes on another; the env's
-Philox counters and the generator states come back bit for bit, so a
-resumed run continues as the uninterrupted one would. A generator restored
-onto another kind of device, whose state format differs, is seeded from
-the saved state instead.
+tensors, and plain values (the learner's seed, the update step, an absent
+second net) as they are. Tensors are stored on the CPU and restored onto
+the devices of the state they are restored into, so a run saved on one
+device resumes on another. The env's Philox counters come back bit for
+bit, and the learner's draws are named by the seed and the update step
+(``engine/philox.py``), so a resumed run continues as the uninterrupted one
+would, on any device.
 
 A save is written under a temporary name and renamed into place, so a
 crash mid-save never leaves a directory that looks like a step; opening
@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-import hashlib
 import json
 import os
 import shutil
@@ -49,8 +48,6 @@ def _pack(value: Any) -> Any:
         return value.state_dict()
     if isinstance(value, EnvState):
         return {f.name: getattr(value, f.name).cpu() for f in dataclasses.fields(value)}
-    if isinstance(value, torch.Generator):
-        return {"device": value.device.type, "state": value.get_state()}
     if isinstance(value, dict):
         return {k: _pack(v) for k, v in value.items()}
     if torch.is_tensor(value):
@@ -69,13 +66,6 @@ def _unpack(like: Any, saved: Any) -> Any:
         return like
     if isinstance(like, EnvState):
         return EnvState(**{f.name: saved[f.name].to(getattr(like, f.name).device) for f in dataclasses.fields(like)})
-    if isinstance(like, torch.Generator):
-        if saved["device"] == like.device.type:
-            like.set_state(saved["state"])
-        else:
-            digest = hashlib.sha256(saved["state"].numpy().tobytes()).digest()
-            like.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
-        return like
     if isinstance(like, dict):
         if set(like) != set(saved):
             raise ValueError(f"checkpoint holds keys {sorted(saved)}, the state {sorted(like)}")
@@ -148,8 +138,8 @@ class Checkpointer:
         """Restore into the structure and devices of ``state_like``.
 
         ``state_like`` is a state built by the trainer's ``init_*``: its
-        modules, optimizer and generators are loaded in place and returned
-        in a new state with the saved fields.
+        modules and optimizer are loaded in place and returned in a new
+        state with the saved fields.
         """
         saved = self._load(step)
         fields = {f.name for f in dataclasses.fields(state_like)}

@@ -70,6 +70,23 @@ def train_flops_per_frame(
     return forward_flops * (rollout_forwards + 3.0 * reuse_passes) + extra_forward_flops * 3.0 * extra_reuse_passes
 
 
+def ppo_flops_per_frame(num_epochs: int, forward_flops: float, after_forward_flops: float = 0.0) -> float:
+    """The PPO trainer's model FLOPs per frame (``benchmarks/mfu_report.py``):
+    one acting forward and ``num_epochs`` forward+backward passes through
+    the policy net, and as many through an afterstate critic of
+    ``after_forward_flops`` (0 without one)."""
+    return train_flops_per_frame(
+        forward_flops, reuse_passes=num_epochs, extra_forward_flops=after_forward_flops,
+        extra_reuse_passes=num_epochs if after_forward_flops else 0,
+    )
+
+
+def a3c_flops_per_frame(forward_flops: float) -> float:
+    """The A3C trainer's model FLOPs per frame: one acting forward and one
+    forward+backward pass (``benchmarks/mfu_report.py``)."""
+    return train_flops_per_frame(forward_flops, reuse_passes=1)
+
+
 def mfu(frames_per_sec: float, flops_per_frame: float, peak: float = PEAK_BF16_H100_SXM) -> float:
     """Model FLOPs utilisation in [0, 1]: achieved over ``peak``."""
     return frames_per_sec * flops_per_frame / peak

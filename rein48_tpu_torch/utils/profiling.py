@@ -13,7 +13,9 @@ drives (``rollout``; ResNet serving, ``serve``; one update of the SJ_2X4
 n-tuple trainer per update mode and table backend and one step of n-tuple
 depth-1 evaluation, ``ntuple``; one delayed update of the YEH_4X6 trainer
 on ``"cached"`` and on ``"torch"``, ``cached``; one flagship afterstate-TD
-update and each of its two phases, ``afterstate``):
+update and each of its two phases, ``afterstate``; one flagship PPO update,
+with and without the afterstate critic, and its phases, ``ppo``; one
+flagship A3C update and its phases, ``a3c``):
 
     python -m rein48_tpu_torch.utils.profiling [group ...]
 
@@ -74,7 +76,7 @@ def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dic
 def main() -> None:
     profilers = {
         "rollout": _profile_rollout, "serve": _profile_serve, "ntuple": _profile_ntuple,
-        "cached": _profile_cached, "afterstate": _profile_afterstate,
+        "cached": _profile_cached, "afterstate": _profile_afterstate, "ppo": _profile_ppo, "a3c": _profile_a3c,
     }
     groups = sys.argv[1:] or list(profilers)
     unknown = set(groups) - set(profilers)
@@ -179,17 +181,48 @@ def _profile_afterstate(dev, out) -> None:
     # B=8192, T=32, ResNet 64x4 in bf16, adam, 2 epochs x 4 minibatches.
     cfg = afterstate.AfterstateTDConfig(lr_decay_updates=100)
     state, model, opt = afterstate.init_afterstate_td(cfg, 0, dev)
-    step = afterstate.make_afterstate_td_step(cfg, model, opt)
+    _profile_phases("afterstate train B=8192 T=32 resnet 64x4 bf16", state, afterstate.make_afterstate_td_step(cfg, model, opt), out)
+
+
+def _profile_phases(name, state, step, out) -> None:
+    """One update of ``step`` and each of its two phases."""
     box = [state]
 
     def update():
         box[0] = step(box[0])[0]
 
-    name = "afterstate train B=8192 T=32 resnet 64x4 bf16"
     out[f"{name} (one update)"] = device_breakdown(update, warmup=1, reps=2, top=8)
     batch = step.rollout(box[0])[1]
     out[f"{name} (rollout phase)"] = device_breakdown(lambda: step.rollout(box[0]), warmup=0, reps=2, top=8)
     out[f"{name} (learn phase)"] = device_breakdown(lambda: step.learn(box[0], batch), warmup=0, reps=2, top=8)
+
+
+def _profile_ppo(dev, out) -> None:
+    from rein48_tpu_torch.train import ppo
+
+    # The flagship configurations (examples/train_ppo_flagship_tpu.py:42-52,
+    # examples/train_ppo_afterstate_tpu.py:51-67): B=8192, T=32, ResNet 64x4
+    # in bf16, 4 epochs x 4 minibatches; the second adds the afterstate critic.
+    flagship = ppo.PPOConfig(
+        batch_size=8192, gamma=0.997, lr_decay_updates=8000, entropy_beta_final=0.002, entropy_decay_updates=6400
+    )
+    critic = ppo.PPOConfig(
+        batch_size=8192, gamma=0.997, learning_rate=1.2e-4, lr_decay_updates=6000, entropy_beta=0.003,
+        entropy_beta_final=0.001, entropy_decay_updates=4800, afterstate_critic=True,
+    )
+    for name, cfg in (("ppo train", flagship), ("ppo+critic train", critic)):
+        state, model, opt = ppo.init_ppo(cfg, 0, dev)
+        _profile_phases(f"{name} B=8192 T=32 resnet 64x4 bf16", state, ppo.make_ppo_step(cfg, model, opt, state.after_model), out)
+        del state, model, opt
+
+
+def _profile_a3c(dev, out) -> None:
+    from rein48_tpu_torch.train import a3c
+
+    # The flagship configuration (examples/train_a3c_flagship_tpu.py:43-54).
+    cfg = a3c.A3CConfig(batch_size=8192, gamma=0.997, lr_decay_updates=12000, entropy_beta_final=0.002, entropy_decay_updates=9600)
+    state, model, opt = a3c.init_a3c(cfg, 0, dev)
+    _profile_phases("a3c train B=8192 T=32 resnet 64x4 bf16", state, a3c.make_a3c_step(cfg, model, opt), out)
 
 
 if __name__ == "__main__":

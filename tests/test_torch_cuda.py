@@ -12,13 +12,15 @@ where the card is and JAX is not; there, from the repository root:
 
 from __future__ import annotations
 
+import dataclasses
+
 import pytest
 import torch
 
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
 from rein48_tpu_torch.ops import hbm_tables, tables
-from rein48_tpu_torch.train import afterstate, common
+from rein48_tpu_torch.train import a3c, afterstate, common, ppo
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
 pytestmark = pytest.mark.cuda
@@ -369,7 +371,7 @@ def test_afterstate_checkpoint_on_card(cuda, tmp_path):
     for m in state.optimizer.moments:
         assert all(torch.equal(x, y) for x, y in zip(state.optimizer.moments[m], restored.optimizer.moments[m]))
     assert restored.optimizer.count == state.optimizer.count
-    assert torch.equal(state.generator.get_state(), restored.generator.get_state())
+    assert (restored.seed, restored.update_step) == (state.seed, state.update_step)
     assert all(torch.equal(getattr(state.env, f), getattr(restored.env, f)) for f in ("boards", "counter", "score"))
     # The next rollout gives the same boards from either state.
     runs = []
@@ -382,4 +384,56 @@ def test_afterstate_checkpoint_on_card(cuda, tmp_path):
     for (k, x), y in zip(state.model.state_dict().items(), on_cpu.model.state_dict().values()):
         assert y.device.type == "cpu" and torch.equal(x.cpu(), y), k
     assert on_cpu.env.counter.device.type == "cpu" and torch.equal(on_cpu.env.counter, state.env.counter.cpu())
-    assert on_cpu.generator.device.type == "cpu" and on_cpu.optimizer.count == state.optimizer.count
+    assert on_cpu.optimizer.count == state.optimizer.count
+
+
+SMALL_NET = (("channels", 16), ("num_blocks", 1))
+SMALL_PPO = ppo.PPOConfig(
+    batch_size=256, unroll_len=8, num_epochs=2, num_minibatches=2, model_kwargs=SMALL_NET, after_model_kwargs=SMALL_NET,
+    afterstate_critic=True, entropy_beta_final=0.002, entropy_decay_updates=4,
+)
+SMALL_A3C = a3c.A3CConfig(batch_size=256, unroll_len=8, model_kwargs=SMALL_NET)
+
+
+@pytest.mark.parametrize("trainer", ["ppo", "a3c"])
+def test_actor_critic_update_on_card(cuda, trainer):
+    init, make, cfg = (ppo.init_ppo, ppo.make_ppo_step, SMALL_PPO) if trainer == "ppo" else (a3c.init_a3c, a3c.make_a3c_step, SMALL_A3C)
+    state, model, opt = init(cfg, 2, device=cuda)
+    nets = {"model": model, "after_model": getattr(state, "after_model", None)}
+    before = {(k, n): p.detach().clone() for k, m in nets.items() if m is not None for n, p in m.named_parameters()}
+    step = make(cfg, model, opt, state.after_model) if trainer == "ppo" else make(cfg, model, opt)
+    state, metrics = step(state)
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in metrics.values())
+    assert float(metrics["env_steps"]) == 256 * 8 and state.update_step == 1
+    # Both heads of the policy net learn. The afterstate critic's value head
+    # and trunk learn; its policy head gets no gradient (JAX's too).
+    for (k, n), p in before.items():
+        unused = k == "after_model" and n.startswith("policy_")
+        assert torch.equal(p, dict(nets[k].named_parameters())[n]) == unused, (k, n)
+
+
+def test_learner_draws_resume_across_devices(cuda, tmp_path):
+    """Saved on the card, resumed on the CPU: the same shuffles, epsilon
+    draws and sampling noise as the uninterrupted run on the card."""
+    cfg = dataclasses.replace(SMALL_AFTERSTATE, epsilon=0.1)
+    state, _ = afterstate.train_afterstate_td(cfg, 2, seed=4, log_every=2, device=cuda)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(2, state)
+    on_cpu = ck.restore(afterstate.init_afterstate_td(cfg, 0, device="cpu")[0])
+    steps = [afterstate.make_afterstate_td_step(cfg, s.model, s.optimizer) for s in (state, on_cpu)]
+    perms = [st.permutations(s, s.env.boards.device).cpu() for st, s in zip(steps, (state, on_cpu))]
+    assert torch.equal(*perms)
+    for s in (state, on_cpu):
+        assert s.seed == 4 and s.update_step == 2
+    words = [philox.learner_words(s.seed, s.update_step, p, (8, 2, 256), device=s.env.boards.device).cpu()
+             for s in (state, on_cpu) for p in (philox.EPSILON, philox.SAMPLE)]
+    assert torch.equal(words[0], words[2]) and torch.equal(words[1], words[3])
+    noise = [philox.learner_gumbel(s.seed, s.update_step, (8, 256, 4), device=s.env.boards.device).cpu() for s in (state, on_cpu)]
+    # The words are equal; log may round in the last bit on either device.
+    torch.testing.assert_close(noise[0], noise[1], rtol=1e-6, atol=1e-6)
+    # The same PPO update drawn on both devices shuffles alike.
+    ppo_state = ppo.init_ppo(SMALL_PPO, 7, device=cuda)[0]
+    ppo_cpu = ppo.init_ppo(SMALL_PPO, 7, device="cpu")[0]
+    got = [ppo.make_ppo_step(SMALL_PPO, s.model, s.optimizer, s.after_model).permutations(s, s.env.boards.device).cpu()
+           for s in (ppo_state, ppo_cpu)]
+    assert torch.equal(*got)

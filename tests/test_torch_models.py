@@ -66,6 +66,49 @@ class TestResNetPolicy:
         np.testing.assert_allclose(tv, jv, atol=BF16_ATOL, rtol=0)
 
 
+def _flax_pair(name, jdtype, tdtype, encoding="onehot", **kwargs):
+    """A Flax net of the registry, one init, and the port's net holding it."""
+    jm = jnets.make_model(name, dtype=jdtype, **kwargs)
+    obs_fn = jobs.encode_onehot if encoding == "onehot" else (lambda b: jobs.encode_raw(b)[..., None])
+    params = jm.init(jax.random.key(2), obs_fn(jnp.zeros((1, 4, 4), jnp.uint8)))["params"]
+    tm = convert.model_from_flax(name, jax.tree.map(np.asarray, params), dtype=tdtype, **kwargs)
+    return jm, params, tm, obs_fn
+
+
+A3C_NETS = [("mlp", "onehot", {}), ("mlp", "raw", {}), ("mlp", "onehot", {"parity_relu_head": False}), ("cnn", "onehot", {})]
+
+
+class TestA3CNets:
+    """``A3CMLP`` and ``CNNPolicy`` loaded from Flax against Flax. Raw tiles
+    stay below 2**13, where the JAX encoder's float exp2 is exact."""
+
+    def _outputs(self, name, encoding, kwargs, jdtype, tdtype, seed):
+        jm, params, tm, obs_fn = _flax_pair(name, jdtype, tdtype, encoding, **kwargs)
+        boards = np.minimum(random_boards(np.random.default_rng(seed), 256), 12)
+        jl, jv = jm.apply({"params": params}, obs_fn(jnp.asarray(boards)))
+        tobs = obs.encode_onehot(torch.from_numpy(boards)) if encoding == "onehot" else obs.encode_raw(torch.from_numpy(boards))[..., None]
+        with torch.no_grad():
+            tl, tv = tm(tobs)
+        assert tl.shape == (256, 4) and tv.shape == (256,) and tl.dtype == tv.dtype == torch.float32
+        assert set(tm.state_dict()) == set(convert.state_dict_from_flax(tm, jax.tree.map(np.asarray, params)))
+        assert nets.count_params(tm) == sum(int(np.asarray(p).size) for p in jax.tree.leaves(params))
+        return (np.asarray(jl), np.asarray(jv)), (tl.numpy(), tv.numpy())
+
+    @pytest.mark.parametrize("name, encoding, kwargs", A3C_NETS)
+    def test_float32_matches_flax(self, name, encoding, kwargs):
+        (jl, jv), (tl, tv) = self._outputs(name, encoding, kwargs, jnp.float32, torch.float32, 4)
+        scale = max(1.0, float(np.abs(jv).max()))  # raw tiles reach 4096: outputs in the hundreds
+        np.testing.assert_allclose(tl, jl, atol=F32_TOL * scale, rtol=F32_TOL)
+        np.testing.assert_allclose(tv, jv, atol=F32_TOL * scale, rtol=F32_TOL)
+        assert np.abs(jv).max() > 0.1
+
+    @pytest.mark.parametrize("name, encoding, kwargs", [c for c in A3C_NETS if c[1] == "onehot"])
+    def test_bfloat16_matches_flax(self, name, encoding, kwargs):
+        (jl, jv), (tl, tv) = self._outputs(name, encoding, kwargs, jnp.bfloat16, torch.bfloat16, 5)
+        np.testing.assert_allclose(tl, jl, atol=BF16_ATOL, rtol=0)
+        np.testing.assert_allclose(tv, jv, atol=BF16_ATOL, rtol=0)
+
+
 class TestModule:
     def test_leading_dims_and_state_dict_keys(self):
         jm, params, tm = _pair(8, 1, jnp.float32, torch.float32)
@@ -85,11 +128,16 @@ class TestModule:
             assert torch.equal(va, vb), k
 
     def test_registry(self):
+        # JAX's registry: exactly mlp | cnn | resnet, ValueError for any other name.
+        assert set(nets._MODELS) == set(jnets._MODELS) == {"mlp", "cnn", "resnet"}
         assert isinstance(nets.make_model("resnet", channels=8, num_blocks=1), nets.ResNetPolicy)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            nets.make_model("mlp")
-        with pytest.raises(ValueError, match="unknown model"):
-            nets.make_model("transformer")
+        assert isinstance(nets.make_model("mlp"), nets.A3CMLP)
+        assert isinstance(nets.make_model("cnn"), nets.CNNPolicy)
+        for name in ("qnet", "transformer"):
+            with pytest.raises(ValueError, match="unknown model"):
+                nets.make_model(name)
+            with pytest.raises(ValueError, match="unknown model"):
+                jnets.make_model(name)
 
 
 class TestEncoders:

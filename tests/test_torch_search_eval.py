@@ -253,7 +253,7 @@ class TestTorchCli:
 
     def test_unported_commands_say_so(self, tmp_path):
         search = ["eval", "--algo", "search", "--device", "cpu"]
-        for argv in (["train"], ["eval", "--algo", "ppo", "--device", "cpu"], search + ["--sample"]):
+        for argv in (["train", "--algo", "dqn"], ["eval", "--algo", "dqn", "--device", "cpu"], ["play"], ["parity"]):
             with pytest.raises(SystemExit, match="not yet ported"):
                 cli.main(argv)
         # The critic's settings need a checkpoint: the heuristic leaf has no units.
