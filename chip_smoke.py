@@ -13,7 +13,10 @@ port's main paths through their entry points (the
 the ``SJ_2X4`` n-tuple trainer ``train_ntuple`` in both update modes with
 its depth-0/depth-1 ``evaluate_ntuple``, the ``YEH_4X6`` trainer on the
 ``"cached"`` hot-prefix backend in both update modes with its depth-0
-``evaluate_ntuple``, ``train --algo ntuple`` of the CLI, and the deep
+``evaluate_ntuple`` (the n-tuple values of both through the fused value
+kernel, which is held against its plain version and timed beside the
+composition it replaced, with the launches per update of both), ``train
+--algo ntuple`` of the CLI, and the deep
 afterstate-TD trainer ``train_afterstate_td`` at its flagship
 configuration with its bf16-against-float32 loss, its checkpoint, ``eval
 --algo search --checkpoint-dir`` of what it trained at depth 0 and 1, and
@@ -73,8 +76,8 @@ Q_BF16_TOL = 0.04
 # it (examples/bench_mxu_trainer_tpu.py:54-60): SJ_2X4 (2 tables of 65,536
 # entries, 8 lookups each), B=1024, 128 steps per update.
 NT_B, NT_T = 1024, 128
-NT_UPDATES = {"step": 16, "delayed": 8}  # step mode's tables are then played
-NT_EVAL_ENVS, NT_EVAL_STEPS = 512, 2000
+NT_UPDATES = {"step": 12, "delayed": 6}  # step mode's tables are then played
+NT_EVAL_ENVS, NT_EVAL_STEPS = 512, 600
 NT_D1_ENVS, NT_D1_STEPS = 256, 48
 # The "cached" trainer at the flagship's width and the JAX package's cached
 # defaults (examples/bench_cached_trainer_tpu.py:51-57): YEH_4X6 (4 tables of
@@ -85,7 +88,7 @@ NT_D1_ENVS, NT_D1_STEPS = 256, 48
 HP_PREFIX_ROWS = (2048, 8192)
 HP_UPDATES = {"delayed": 4, "step": 2}
 HP_REFRESH_EVERY = 2
-HP_EVAL_ENVS, HP_EVAL_STEPS = 512, 1500
+HP_EVAL_ENVS, HP_EVAL_STEPS = 512, 500
 # Scatter sums are reassociated (atomics, in an order that changes from run
 # to run; index_add_ on the card uses atomics too). The rounding of a float32
 # sum grows with the magnitude of its terms, not of its result, so a sum of
@@ -111,7 +114,7 @@ AS_UPDATES = 6
 LOSS_BF16_RTOL = 0.02
 AS_BF16_BOARDS = 4096
 # eval --algo search --checkpoint-dir: (depth, envs, steps, chance_chunk).
-AS_EVAL = ((0, 1024, 300, None), (1, 256, 200, 4))
+AS_EVAL = ((0, 1024, 300, None), (1, 256, 100, 4))
 # The PPO flagship (examples/train_ppo_flagship_tpu.py:42-52): B=8192, T=32,
 # ResNet 64x4 in bf16, gamma 0.997, adam at 3e-4 on a cosine over the
 # example's 8,000 updates to 0.1 of it, entropy weight 0.01 -> 0.002 over
@@ -223,7 +226,14 @@ def timed(fn, reps: int = 50, kernel: str | None = None) -> dict:
     """
     from rein48_tpu_torch.utils import profiling
 
-    r = profiling.device_breakdown(fn, warmup=1, reps=reps, top=8)
+    # Every timed call launches kernels; a trace that holds no kernel on
+    # the card is a reading the profiler dropped, not a time: take it again.
+    for _ in range(3):
+        r = profiling.device_breakdown(fn, warmup=1, reps=reps, top=8)
+        if r["top"]:
+            break
+    else:
+        raise AssertionError("the profiler recorded no kernel of a timed call three times")
     call_ms = cuda_ms(fn, reps)
     out = {"ms": r["device_ms"], "call_ms": call_ms, "launches": r["launches"],
            "kernels": {t["kernel"][:40]: t["ms"] for t in r["top"][:4]}}
@@ -245,12 +255,13 @@ def floor_phase(dev) -> float:
 
 
 def zero_table_counts() -> None:
-    """Set the launch counts of both table modules and the cached window
-    branch counts to 0."""
+    """Set the launch counts of the table and value modules and the cached
+    window branch counts to 0."""
     from rein48_tpu_torch.agents import ntuple
     from rein48_tpu_torch.ops import hbm_tables, tables
+    from rein48_tpu_torch.ops import ntuple_value as value_ops
 
-    for counts in (tables.launches, hbm_tables.launches, ntuple.cached_windows):
+    for counts in (tables.launches, hbm_tables.launches, value_ops.launches, ntuple.cached_windows):
         for k in counts:
             counts[k] = 0
 
@@ -297,6 +308,28 @@ class Clock:
     def per_update_s(self) -> list[float]:
         t = [at for at, _ in self.records]
         return [b - a for a, b in zip(t, t[1:])]
+
+
+def table_counts() -> dict:
+    """The launch counts of the table and value modules."""
+    from rein48_tpu_torch.ops import hbm_tables, tables
+    from rein48_tpu_torch.ops import ntuple_value as value_ops
+
+    return {**tables.launches, **hbm_tables.launches, **value_ops.launches}
+
+
+def check_values(net, plain, params, plain_params, boards) -> dict:
+    """``net.value`` (the fused kernel) bit-equal to its plain version, and
+    within ``TABLE_ATOL + TABLE_RTOL * S`` of the ``"torch"`` backend, S the
+    same value on the tables' magnitudes: the card's ``.sum(-1)`` is not a
+    left fold, so the two add the same lookups in another order."""
+    from rein48_tpu_torch.ops import ntuple_value as value_ops
+
+    got = net.value(params, boards)
+    equal = bool(torch.equal(got, value_ops.ntuple_value_reference(net.indices(boards), *net.value_tables(params))))
+    scale = plain.value({k: v.abs() for k, v in plain_params.items() if v.dtype == torch.float32}, boards)
+    ok, err, ratio = close_tables([got], [plain.value(plain_params, boards)], [scale])
+    return {"kernel_equal_plain": equal, "within_tol_of_torch": ok, "max_abs_err": f"{err:.3g}", "err_over_tol": f"{ratio:.3g}"}
 
 
 def ntuple_trainer_inputs(dev):
@@ -402,16 +435,17 @@ def table_kernel_phase(state, net, gathers, window):
 
 
 def ntuple_network_phase(state, net, window):
-    """``"mxu"`` against ``"torch"`` on the card: value and the TD updates."""
+    """``"mxu"`` against ``"torch"`` on the card: value (the fused kernel
+    bit-equal to its plain version beside it) and the TD updates."""
     from rein48_tpu_torch.train import ntuple as nt
 
     plain = nt.get_network(dataclasses.replace(net.config, backend="torch"))
     boards = torch.cat([b for b, _ in window])
     errs = torch.cat([e for _, e in window])
     with torch.no_grad():
-        equal = bool(torch.equal(net.value(state.params, boards), plain.value(state.params, boards)))
-        log("ntuple/mxu-vs-torch", fn="value", boards=boards.shape[0], equal=equal)
-        ok, worst = equal, 0.0
+        v = check_values(net, plain, state.params, state.params, boards)
+        log("ntuple/mxu-vs-torch", fn="value", boards=boards.shape[0], **v)
+        ok, worst = v["kernel_equal_plain"] and v["within_tol_of_torch"], 0.0
         checks = [("td_apply_tc", lambda n, p, e: n.td_apply_tc(p, window[0][0], e, 1.0), window[0][1], True)]
         for tc in (True, False):
             checks.append((f"td_apply_delayed(tc={tc})", lambda n, p, e, tc=tc: n.td_apply_delayed(p, boards, e, 1.0, tc=tc), errs, tc))
@@ -430,7 +464,7 @@ def ntuple_network_phase(state, net, window):
     return worst
 
 
-def paired_updates(dev, mode: str, backends=("mxu", "torch"), rounds: int = 2, **cfg) -> dict:
+def paired_updates(dev, mode: str, backends=("mxu", "torch"), **cfg) -> dict:
     """Host seconds per update of ``make_ntuple_step`` under two backends,
     taken in turns (a, b, b, a) after a warm-up update each through
     ``train_ntuple``, so that both backends see the same host. ``cfg``
@@ -448,13 +482,12 @@ def paired_updates(dev, mode: str, backends=("mxu", "torch"), rounds: int = 2, *
         net = nt.get_network(c.network_config(dev))
         states[backend] = dataclasses.replace(state, params=net.refresh_cache(state.params))
     a, b = backends
-    for _ in range(rounds):
-        for backend in (a, b, b, a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            states[backend], metrics = steps[backend](states[backend])
-            float(metrics["td_abs_err"])  # waits for the update
-            times[backend].append(time.perf_counter() - t0)
+    for backend in (a, b, b, a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[backend], metrics = steps[backend](states[backend])
+        float(metrics["td_abs_err"])  # waits for the update
+        times[backend].append(time.perf_counter() - t0)
     return times
 
 
@@ -464,10 +497,9 @@ def ntuple_trainer_phase(dev):
     update by update, and depth-0 play of the trained tables against the
     untrained ones."""
     from rein48_tpu_torch.agents import ntuple
-    from rein48_tpu_torch.ops import tables
     from rein48_tpu_torch.train import ntuple as nt
 
-    launched = {k: 0 for k in tables.launches}
+    launched = {k: 0 for k in table_counts()}
     trained = None
     for mode, updates in NT_UPDATES.items():
         cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4, batch_size=NT_B, steps_per_update=NT_T, update_mode=mode)
@@ -477,11 +509,13 @@ def ntuple_trainer_phase(dev):
         clock = Clock()
         zero_table_counts()
         state, history = nt.train_ntuple(cfg, updates, seed=SEED, log_every=1, logger=clock, device=dev)
-        counts = dict(tables.launches)
-        # Per env step: 2 tables x (afterstates + prev_after) gathers; per
-        # step ("step") or per window ("delayed"), one stats scatter per table.
+        counts = table_counts()
+        # Per env step: one fused value call for the afterstates and one for
+        # prev_after, no standalone gather; per step ("step") or per window
+        # ("delayed"), one stats scatter per table.
         scatters = NT_T if mode == "step" else NT_T // cfg.delay_window
-        want = {"table_gather": 4 * NT_T * updates, "table_scatter": 2 * scatters * updates}
+        want = {"table_gather": 0, "table_scatter": 2 * scatters * updates, "cached_gather": 0, "cached_scatter": 0,
+                "ntuple_value": 2 * NT_T * updates}
         if counts != want:
             raise AssertionError(f"train_ntuple({mode}) launched {counts}, expected {want}")
         for k in launched:
@@ -500,7 +534,7 @@ def ntuple_trainer_phase(dev):
         if mode == "step":
             trained = state
         times = paired_updates(dev, mode)
-        log("ntuple/train-paired", mode=mode, tuples="SJ_2X4", order="mxu,torch,torch,mxu x2", **{
+        log("ntuple/train-paired", mode=mode, tuples="SJ_2X4", order="mxu,torch,torch,mxu", **{
             f"{b}_env_steps_per_s": [round(NT_B * NT_T / t, 1) for t in ts] for b, ts in times.items()
         }, mxu_over_torch=round(float(np.median(times["torch"]) / np.median(times["mxu"])), 4))
     cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4)
@@ -513,11 +547,15 @@ def ntuple_trainer_phase(dev):
             params, cfg, depth=0, num_envs=NT_EVAL_ENVS, num_steps=NT_EVAL_STEPS, seed=SEED, protocol="first", device=dev
         )
         wall = time.perf_counter() - t0
+        counts = table_counts()
         for k in launched:
-            launched[k] += tables.launches[k]
+            launched[k] += counts[k]
         scores[name] = stats["avg_score"]
         log("ntuple/eval-depth0", tables=name, envs=NT_EVAL_ENVS, steps=NT_EVAL_STEPS, wall_s=round(wall, 3),
-            gathers=tables.launches["table_gather"], stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+            launches=json.dumps(counts), stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+        # One value call per step: 512 envs x 4 afterstates, one leaf chunk.
+        if counts != {**{k: 0 for k in counts}, "ntuple_value": NT_EVAL_STEPS}:
+            raise AssertionError(f"depth-0 evaluate_ntuple launched {counts}")
     if not scores["trained"] > 1.3 * scores["untrained"]:
         raise AssertionError(f"trained tables do not beat the untrained ones at depth 0: {scores}")
     return trained, launched
@@ -528,7 +566,6 @@ def ntuple_depth1_phase(trained, dev):
     warm-up, and every chosen action legal."""
     from rein48_tpu_torch.agents import ntuple
     from rein48_tpu_torch.engine import vector
-    from rein48_tpu_torch.ops import tables
     from rein48_tpu_torch.train import evaluate
     from rein48_tpu_torch.train import ntuple as nt
 
@@ -547,11 +584,11 @@ def ntuple_depth1_phase(trained, dev):
         t0 = time.perf_counter()
         stats = run(NT_D1_STEPS)
         walls.append(time.perf_counter() - t0)
-    launched = dict(tables.launches)
+    launched = table_counts()
     # Per step: 8 chance chunks, each of envs x 64 leaf boards that make_leaf
-    # cuts into chunks of 4,096, each gathering from 2 tables (64 at 256 envs).
-    per_step = 8 * -(-NT_D1_ENVS * 64 // 4096) * 2
-    if launched != {"table_gather": per_step * 2 * NT_D1_STEPS, "table_scatter": 0}:
+    # cuts into chunks of 4,096, one fused value call each (32 at 256 envs).
+    per_step = 8 * -(-NT_D1_ENVS * 64 // 4096)
+    if launched != {**{k: 0 for k in launched}, "ntuple_value": per_step * 2 * NT_D1_STEPS}:
         raise AssertionError(f"depth-1 evaluate_ntuple launched {launched}")
     if not all(np.isfinite(v) for v in stats.values()) or stats["episodes"] != NT_D1_ENVS:
         raise AssertionError(f"depth-1 n-tuple stats malformed: {stats}")
@@ -566,6 +603,176 @@ def ntuple_depth1_phase(trained, dev):
     if int(checked.illegal):
         raise AssertionError("depth-1 n-tuple planner chose an illegal action")
     return launched
+
+
+def leaf_chunk(state):
+    """A leaf chunk of depth-1 n-tuple evaluation: the second chunk of 4,096
+    boards that ``make_leaf`` cuts from one chance chunk's leaves (a slice,
+    stored transposed as the engine's afterstates are), recorded from a
+    depth-1 step over the first ``NT_D1_ENVS`` boards of ``state``."""
+    from rein48_tpu_torch.control import search
+
+    seen = []
+
+    def leaf(boards):
+        seen.append(boards)
+        return torch.zeros(boards.shape[:-2], device=boards.device)
+
+    with torch.no_grad():
+        search.make_expectimax_policy(1, leaf_value=leaf, reward_fn=lambda r: r, gamma=1.0, death_value=0.0,
+                                      chance_chunk=4)(state.env.boards[:NT_D1_ENVS])
+    return seen[0].reshape((-1,) + seen[0].shape[-2:]).split(4096)[1]
+
+
+def value_kernel_phase(cases) -> dict:
+    """The fused value kernel at the main paths' shapes: bit-equal to its
+    plain version, twice; within the scaled tolerance of the composition it
+    replaced (``NTupleNetwork.gather_value``, whose ``.sum(-1)`` adds in
+    another order on the card); device time, launches and host-bound wall time per call of
+    both, the wall times taken in turns (fused, composed, composed, fused,
+    twice); the plain version's time; and the bound by bytes."""
+    from rein48_tpu_torch.ops import hbm_tables
+    from rein48_tpu_torch.ops import ntuple_value as value_ops
+
+    out = {}
+    for name, net, params, boards in cases:
+        tabs, rowmaps = net.value_tables(params)
+        with torch.no_grad():
+            fns = {
+                "fused": lambda: net.value(params, boards),
+                "composed": lambda: net.gather_value(params, boards),
+                "plain": lambda: value_ops.ntuple_value_reference(net.indices(boards), tabs, rowmaps),
+            }
+            got = fns["fused"]()
+            equal = bool(torch.equal(got, fns["plain"]())) and bool(torch.equal(fns["fused"](), got))
+            indices = net.indices(boards)
+            scale = value_ops.ntuple_value_reference(indices, [t.abs() for t in tabs], rowmaps)
+            ok, err, ratio = close_tables([got], [fns["composed"]()], [scale])
+            n = boards.numel() // 16
+            touched = 0  # table entries, and row-map entries, this call reads
+            for i, idx in enumerate(indices):
+                if rowmaps is not None:
+                    touched += int(torch.unique(idx >> 7).numel())
+                    idx = hbm_tables.physical_index(rowmaps[i], idx)
+                touched += int(torch.unique(idx).numel())
+            # Each board read once (16 B), each value written once (4 B), each touched entry read once.
+            bound_ms = 1e3 * (20 * n + 4 * touched) / HBM_BYTES_PER_S
+            t = {which: timed(fn) for which, fn in fns.items()}
+            one = boards.reshape((-1,) + boards.shape[-2:])[:1]
+            t_one = timed(lambda: net.value(params, one))  # the same launch with one board: its latency alone
+            wall_us = {"fused": [], "composed": []}
+            for _ in range(2):
+                for which in ("fused", "composed", "composed", "fused"):
+                    wall_us[which].append(round(1e3 * cuda_ms(fns[which], 50), 3))
+        log("ntuple/value-kernel", call=name, backend=net.config.backend, tables=len(tabs), boards=n,
+            board_layout="transposed" if value_ops.board_layout(boards) else "row-major", touched=touched,
+            equal_plain_twice=equal, composed_within_tol=ok, composed_max_abs_err=f"{err:.3g}", err_over_tol=f"{ratio:.3g}",
+            us=round(1e3 * t["fused"]["ms"], 4), us_one_board=round(1e3 * t_one["ms"], 4), launches_per_call=t["fused"]["launches"],
+            composed_us=round(1e3 * t["composed"]["ms"], 4), composed_launches_per_call=t["composed"]["launches"],
+            wall_us=wall_us["fused"], composed_wall_us=wall_us["composed"], plain_us=round(1e3 * t["plain"]["ms"], 4),
+            bound_us=round(1e3 * bound_ms, 5), kernels=json.dumps(t["fused"]["kernels"]),
+            composed_kernels=json.dumps(t["composed"]["kernels"]))
+        if not (equal and ok):
+            raise AssertionError(f"the fused value kernel disagrees with its plain version or the composed path ({name})")
+        if t["fused"]["launches"] != 1:
+            raise AssertionError(f"a fused value call made {t['fused']['launches']} launches ({name})")
+        out[name] = dict(n=n, ms=t["fused"]["ms"], plain_ms=t["plain"]["ms"], bound_ms=bound_ms, composed_ms=t["composed"]["ms"],
+                         composed_launches=t["composed"]["launches"], wall_us=wall_us["fused"], composed_wall_us=wall_us["composed"])
+    return out
+
+
+@contextlib.contextmanager
+def value_path(path: str):
+    """``NTupleNetwork.value`` of ``"mxu"`` and ``"cached"`` taken through
+    another path for the length of the block: ``"composed"``, the
+    composition the fused kernel replaced (``gather_value``), or ``"plain"``,
+    the kernel's plain version on the network's own indices."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.ops import ntuple_value as value_ops
+
+    fused = ntuple.NTupleNetwork.value
+
+    def value(self, params, boards):
+        if self.config.backend == "torch":
+            return fused(self, params, boards)
+        if path == "composed":
+            return self.gather_value(params, boards)
+        return value_ops.ntuple_value_reference(self.indices(boards), *self.value_tables(params))
+
+    ntuple.NTupleNetwork.value = value
+    try:
+        yield
+    finally:
+        ntuple.NTupleNetwork.value = fused
+
+
+def kernel_profile(fn, reps: int = 1) -> dict:
+    """Kernels launched, device ms and wall ms per call of ``fn()``, traced
+    on the card alone: without the host's ops the profiler reads a call of
+    80 k launches in seconds. Each launch runs one kernel, so the kernels
+    counted are the launches (copies and fills by the runtime are not
+    kernels, as they are no launch calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rein48_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and profiling._device_us(e) > 0
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(profiling._device_us(e) for e in kernels) / 1e3 / reps
+    return {"launches": sum(e.count for e in kernels) // reps, "device_ms": round(device_ms, 6),
+            "wall_ms": round(wall_ms, 4), "busy_share": round(device_ms / wall_ms, 4)}
+
+
+def value_launches_phase(sj_trained, dev):
+    """Launches, device and wall ms and busy share (``kernel_profile``) and
+    the exact counts of one step-mode update of the SJ_2X4 trainer,
+    continuing the state this run trained, and of one depth-1 evaluation
+    step, which is also read with the composition the fused value replaced
+    and by ``profiling.device_breakdown`` (the host's launch calls). Run
+    last: a trace of an 80 k-launch update has shifted later readings."""
+    from rein48_tpu_torch.agents import ntuple
+    from rein48_tpu_torch.engine import vector
+    from rein48_tpu_torch.train import ntuple as nt
+    from rein48_tpu_torch.utils import profiling
+
+    out = {}
+
+    def measure(name, fn, reps, variants=("fused",)):
+        for variant in variants:
+            with value_path(variant) if variant == "composed" else contextlib.nullcontext():
+                zero_table_counts()
+                r = kernel_profile(fn, reps)
+                counts = {k: v // reps for k, v in table_counts().items() if v}
+                extra = {}
+                if len(variants) > 1:
+                    extra["launch_calls"] = profiling.device_breakdown(fn, warmup=0, reps=reps, top=1)["launches"]
+            log("ntuple/value-launches", path=name, value=variant, **r, **extra, counts_per_call=json.dumps(counts))
+            out[(name, variant)] = dict(**r, counts=counts)
+
+    box = [sj_trained]
+    step = nt.make_ntuple_step(nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4, batch_size=NT_B, steps_per_update=NT_T), dev)
+
+    def update():
+        box[0] = step(box[0])[0]
+
+    measure("SJ_2X4 step update", update, reps=1)
+    policy = nt._get_ntuple_policy(nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4).network_config(dev), 1, 4)
+    st = vector.reset_batch(SEED + 5, NT_D1_ENVS, dev)
+
+    @torch.no_grad()
+    def d1_step():
+        vector.step_autoreset(st, policy(sj_trained.params, st.boards))
+
+    d1_step()
+    measure("SJ_2X4 depth-1 step, 256 envs", d1_step, reps=3, variants=("fused", "composed"))
+    return out
 
 
 def logical_tables(params: dict) -> dict:
@@ -685,8 +892,9 @@ def hbm_kernel_phase(state, net, idx, window):
 
 def cached_network_phase(state, net, window):
     """``"cached"`` against ``"torch"`` on the card, the torch backend reading
-    the same tables unpermuted: value bit-equal, and the delayed TC update
-    within the scaled tolerance on both branches."""
+    the same tables unpermuted: value within the scaled tolerance (the fused
+    kernel bit-equal to its plain version beside it), and the delayed TC
+    update within the scaled tolerance on both branches."""
     from rein48_tpu_torch.agents import ntuple
     from rein48_tpu_torch.ops import hbm_tables
     from rein48_tpu_torch.train import ntuple as nt
@@ -695,9 +903,9 @@ def cached_network_phase(state, net, window):
     boards, errs = window
     flat = logical_tables(state.params)
     with torch.no_grad():
-        equal = bool(torch.equal(net.value(state.params, boards), plain.value(flat, boards)))
-        log("hbm/cached-vs-torch", fn="value", boards=boards.shape[0], equal=equal)
-        ok, worst = equal, 0.0
+        v = check_values(net, plain, state.params, flat, boards)
+        log("hbm/cached-vs-torch", fn="value", boards=boards.shape[0], **v)
+        ok, worst = v["kernel_equal_plain"] and v["within_tol_of_torch"], 0.0
         b = plain.td_apply_delayed({k: v.clone() for k, v in flat.items()}, boards, errs, 1.0)
         scale = plain.td_apply_delayed({k: v.abs() for k, v in flat.items()}, boards, errs.abs(), 1.0)
         # The trainer's capacity, and one that holds a whole block: never overflows.
@@ -724,10 +932,9 @@ def cached_trainer_phase(dev):
     8192 prefix rows if the defaults never took the fast branch; then
     ``"cached"`` against ``"torch"`` paired update by update."""
     from rein48_tpu_torch.agents import ntuple
-    from rein48_tpu_torch.ops import hbm_tables, tables
     from rein48_tpu_torch.train import ntuple as nt
 
-    launched = {k: 0 for k in hbm_tables.launches}
+    launched = {k: 0 for k in table_counts()}
     fast, trained = 0, None
     for prefix_rows in HP_PREFIX_ROWS:
         for mode, updates in HP_UPDATES.items():
@@ -739,15 +946,15 @@ def cached_trainer_phase(dev):
             zero_table_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             state, history = nt.train_ntuple(cfg, updates, seed=SEED, log_every=1, logger=clock, device=dev)
-            counts, windows = dict(hbm_tables.launches), dict(ntuple.cached_windows)
-            # Per env step: 4 tables x (afterstates + prev_after) gathers; per
-            # window ("delayed"), one scatter per table; "step" scatters nothing.
+            counts, windows = table_counts(), dict(ntuple.cached_windows)
+            # Per env step: one fused value call for the afterstates and one
+            # for prev_after, no standalone gather; per window ("delayed"),
+            # one scatter per table; "step" scatters nothing.
             scatters = 4 * (NT_T // cfg.delay_window) * updates if mode == "delayed" else 0
-            want = {"cached_gather": 8 * NT_T * updates, "cached_scatter": scatters}
-            if counts != want or any(tables.launches.values()) or sum(windows.values()) != scatters:
-                raise AssertionError(
-                    f"train_ntuple(cached, {mode}) launched {counts} and {tables.launches}, windows {windows}; expected {want}"
-                )
+            want = {"table_gather": 0, "table_scatter": 0, "cached_gather": 0, "cached_scatter": scatters,
+                    "ntuple_value": 2 * NT_T * updates}
+            if counts != want or sum(windows.values()) != scatters:
+                raise AssertionError(f"train_ntuple(cached, {mode}) launched {counts}, windows {windows}; expected {want}")
             for k in launched:
                 launched[k] += counts[k]
             fast += windows["fast"]
@@ -773,16 +980,20 @@ def cached_trainer_phase(dev):
     if not fast:
         raise AssertionError("the cached trainer never took the fast branch")
     times = paired_updates(dev, "delayed", ("cached", "torch"), tuples=ntuple.YEH_4X6)
-    log("hbm/train-paired", mode="delayed", tuples="YEH_4X6", order="cached,torch,torch,cached x2", **{
+    log("hbm/train-paired", mode="delayed", tuples="YEH_4X6", order="cached,torch,torch,cached", **{
         f"{b}_env_steps_per_s": [round(NT_B * NT_T / t, 1) for t in ts] for b, ts in times.items()
     }, cached_over_torch=round(float(np.median(times["torch"]) / np.median(times["cached"])), 4))
     return trained, launched
 
 
 def cached_eval_phase(trained, dev):
-    """Depth-0 ``evaluate_ntuple`` of the cached-trained tables against the
-    same tables unpermuted, read on ``"torch"``: equal stats."""
-    from rein48_tpu_torch.ops import hbm_tables, tables
+    """Depth-0 ``evaluate_ntuple`` of the cached-trained tables, and the same
+    evaluation with ``value`` taken through the kernel's plain version
+    (``value_path("plain")``: the network's own indices, ``table[phys(idx)]``
+    and the adds in the kernel's order, no kernel launched): equal stats.
+    Not against ``"torch"``: the card's ``.sum(-1)`` adds a table's lookups
+    in another order than the kernel's left fold, so a near-tied move may go
+    the other way there."""
     from rein48_tpu_torch.train import ntuple as nt
 
     cfg = nt.NTupleTrainConfig(table_backend="cached")
@@ -791,12 +1002,19 @@ def cached_eval_phase(trained, dev):
     t0 = time.perf_counter()
     stats = nt.evaluate_ntuple(trained.params, cfg, **kw)
     wall = time.perf_counter() - t0
-    launched = dict(hbm_tables.launches)
-    plain = nt.evaluate_ntuple(logical_tables(trained.params), dataclasses.replace(cfg, table_backend="torch"), **kw)
+    launched = table_counts()
+    zero_table_counts()
+    with value_path("plain"):
+        plain = nt.evaluate_ntuple(trained.params, cfg, **kw)
+    plain_launched = table_counts()
     log("hbm/eval-depth0", envs=HP_EVAL_ENVS, steps=HP_EVAL_STEPS, wall_s=round(wall, 3), launches=json.dumps(launched),
-        equal_to_torch=stats == plain, stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
-    if stats != plain or launched["cached_gather"] <= 0 or any(tables.launches.values()):
-        raise AssertionError(f"depth-0 evaluation of cached tables: {stats} launches {launched}, torch reads {plain}")
+        equal_to_plain=stats == plain, plain_launches=json.dumps(plain_launched),
+        stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+    # One value call per step: 512 envs x 4 afterstates, one leaf chunk.
+    if launched != {**{k: 0 for k in launched}, "ntuple_value": HP_EVAL_STEPS} or any(plain_launched.values()):
+        raise AssertionError(f"depth-0 evaluation of cached tables launched {launched}, its plain run {plain_launched}")
+    if stats != plain:
+        raise AssertionError(f"depth-0 evaluation of cached tables: {stats}, through the plain value {plain}")
     return launched
 
 
@@ -804,7 +1022,6 @@ def ntuple_cli_phase(dev):
     """``train --algo ntuple`` at the CLI's defaults: the YEH_4X6 flagship
     (4 tables of 16.7M entries with TC accumulators) on the plain path."""
     from rein48_tpu_torch import cli
-    from rein48_tpu_torch.ops import hbm_tables, tables
 
     argv = ["train", "--algo", "ntuple", "--updates", "3", "--batch-size", "1024", "--unroll", "64", "--log-every", "1"]
     out, err = io.StringIO(), io.StringIO()
@@ -815,7 +1032,7 @@ def ntuple_cli_phase(dev):
     final = ast.literal_eval(err.getvalue().split("final: ", 1)[1].strip())
     walls = [float(ln.split("wall_time=")[1].split()[0]) for ln in out.getvalue().splitlines() if "wall_time=" in ln]
     per_update = [b - a for a, b in zip(walls, walls[1:])]
-    kernel_launches = {**tables.launches, **hbm_tables.launches}
+    kernel_launches = table_counts()
     log("ntuple/cli", argv=" ".join(argv), rc=rc, table_launches=json.dumps(kernel_launches),
         env_steps_per_s_after_first=[round(1024 * 64 / dt, 1) for dt in per_update if dt > 0],
         final=json.dumps(final), peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3))
@@ -842,9 +1059,8 @@ def run_cli(argv) -> dict:
 def kernel_launches() -> dict:
     """Every launch count of the port's kernels."""
     from rein48_tpu_torch.engine import fused
-    from rein48_tpu_torch.ops import hbm_tables, tables
 
-    return {"rollout": fused.launches, **tables.launches, **hbm_tables.launches}
+    return {"rollout": fused.launches, **table_counts()}
 
 
 def afterstate_config():
@@ -1248,11 +1464,14 @@ def ppo_bf16_phase(state, step, batch):
         raise AssertionError("the bf16 PPO loss or gradient norm on the card disagrees with the float32 net")
 
 
-def a3c_parity_phase(dev):
+def a3c_parity_phase(dev, at: str):
     """``A3CConfig.reference_parity()`` (B=64, T=100, the MLP at 64 hidden
     units on raw tiles, RMSprop, no mask) through ``train_a3c``, then one
     update by phases: every reward is zero and the targets are the
-    bootstrap's discounts alone, cut at episode ends."""
+    bootstrap's discounts alone, cut at episode ends. ``at`` names the
+    phase's place in the run: its host-bound ms per update is read both
+    first and after the other phases, to tell the code from the process
+    state the earlier phases leave (their profiler traces)."""
     from rein48_tpu_torch.agents import a3c as a3c_agent
     from rein48_tpu_torch.train import a3c
 
@@ -1272,7 +1491,7 @@ def a3c_parity_phase(dev):
     zero_reward = not bool(batch["rewards"].count_nonzero())
     bootstrap_only = bool(torch.equal(targets, want))
     metrics = step.learn(state, batch)
-    log("a3c/parity", B=cfg.batch_size, T=cfg.unroll_len, model="mlp 64 float32, raw tiles, rmsprop",
+    log("a3c/parity", at=at, B=cfg.batch_size, T=cfg.unroll_len, model="mlp 64 float32, raw tiles, rmsprop",
         updates=A3C_PARITY_UPDATES, wall_s=round(wall, 3), ms_per_update=[round(1e3 * dt, 3) for dt in clock.per_update_s()],
         rewards_all_zero=zero_reward, targets_bootstrap_only=bootstrap_only,
         targets_nonzero=int(targets.count_nonzero()), loss=round(float(metrics["loss"]), 6),
@@ -1397,6 +1616,7 @@ def main() -> int:
     from rein48_tpu_torch.engine import fused, philox, vector
     from rein48_tpu_torch.models import nets
     from rein48_tpu_torch.train import common, evaluate
+    from rein48_tpu_torch.train import ntuple as nt
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1405,6 +1625,14 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+
+    laps, lap_at = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, kept for the ``[timing]`` line."""
+        now = time.perf_counter()
+        laps[name] = round(now - lap_at[0], 1)
+        lap_at[0] = now
 
     # 1. Build every kernel, one nvcc each, all at once.
     t0 = time.perf_counter()
@@ -1437,6 +1665,10 @@ def main() -> int:
         raise AssertionError("rollout kernel (Philox) differs from its plain version")
     torch.cuda.synchronize()
 
+    # The host-bound A3C parity regime before any other phase (read again
+    # at its place after PPO and A3C).
+    a3c_parity_phase(dev, at="first")
+    lap("build, rollout kernel checks, A3C parity first")
     # 4-5. The main paths, through their entry points, with the counts at 0.
     fused.launches = 0
     bench = run_cli(["bench", "--batch", str(BENCH_B), "--unroll", str(BENCH_T), "--rounds", str(BENCH_ROUNDS)])
@@ -1452,7 +1684,7 @@ def main() -> int:
 
     model = nets.ResNetPolicy(64, 4, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
     serving = {}
-    for depth, envs, steps, chunk, launch in ((0, 1024, 512, None, 256), (1, 256, 256, 4, 128)):
+    for depth, envs, steps, chunk, launch in ((0, 1024, 512, None, 256), (1, 256, 128, 4, 128)):
         def run(num_steps, depth=depth, envs=envs, chunk=chunk, launch=launch):
             return evaluate.evaluate_search(
                 depth=depth, num_envs=envs, num_steps=num_steps, seed=123, model=model,
@@ -1514,6 +1746,7 @@ def main() -> int:
     if q_err > Q_BF16_TOL or not same:
         raise AssertionError("depth-1 q-values on the card disagree with the float32 reference")
 
+    lap("bench, ResNet serving")
     # 6. The kernel at the bench shape: bit-equal to its plain version there,
     # its time, the plain version's, and the bound from its own SASS.
     state = vector.reset_batch(SEED + 4, BENCH_B, dev)
@@ -1562,31 +1795,43 @@ def main() -> int:
     # trainer in both update modes with its depth-0 and depth-1 evaluation,
     # and the CLI. The floor is timed here, after the host-bound serving
     # runs, so that no profiler session precedes those.
+    lap("rollout kernel at the bench shape")
     floor_ms = floor_phase(dev)
     state, net, gathers, window = ntuple_trainer_inputs(dev)
     gather, scatter = table_kernel_phase(state, net, gathers, window)
+    after = nt._all_afterstates(state.env.boards)[0]
+    values = value_kernel_phase([("SJ_2X4 value(afterstates)", net, state.params, after),
+                                 ("SJ_2X4 depth-1 leaf chunk", net, state.params, leaf_chunk(state))])
     net_err = ntuple_network_phase(state, net, window)
-    del state
+    del state, after
     trained, table_launches = ntuple_trainer_phase(dev)
     for k, v in ntuple_depth1_phase(trained, dev).items():
         table_launches[k] += v
+    sj_trained = trained
     del trained
+    lap("SJ_2X4 kernels, value kernel, trainer, depth-0/1")
     # 12-15. The "cached" backend at YEH_4X6: its kernels against their plain
     # versions, the backend against "torch" on the card, then its main paths
     # with the counts at 0: the trainer in both update modes and depth-0
     # evaluation of what it trained.
     state, net, idx, window = cached_trainer_inputs(dev)
     hp_gather, hp_scatter = hbm_kernel_phase(state, net, idx, window)
+    after = nt._all_afterstates(state.env.boards)[0]
+    values.update(value_kernel_phase([("YEH_4X6 cached value(afterstates)", net, state.params, after)]))
     hp_net_err = cached_network_phase(state, net, window)
-    del state, window
+    del state, window, after
     trained, hp_launches = cached_trainer_phase(dev)
     for k, v in cached_eval_phase(trained, dev).items():
         hp_launches[k] += v
     del trained
+    lap("YEH_4X6 cached kernels, value kernel, trainer, depth-0")
     ntuple_cli_phase(dev)
-    for k, v in {**table_launches, **hp_launches}.items():
-        if v <= 0:
-            raise AssertionError(f"the n-tuple main paths launched no {k} kernel")
+    lap("CLI ntuple")
+    nt_launches = {k: table_launches[k] + hp_launches[k] for k in table_launches}
+    # The value calls go through the fused kernel, never a standalone gather.
+    for k, v in nt_launches.items():
+        if (v > 0) != (k not in ("table_gather", "cached_gather")):
+            raise AssertionError(f"the n-tuple main paths launched {v} {k} kernels")
     # 16-20. The deep afterstate-TD trainer at its flagship configuration
     # through its entry point, the bf16 net against float32, its checkpoint,
     # search with the trained value net at the leaves, and the CLI. This path runs
@@ -1599,6 +1844,7 @@ def main() -> int:
         del state
         afterstate_eval_phase(cfg, ckpt_dir, dev)
     afterstate_cli_phase()
+    lap("afterstate trainer, checkpoint, eval, CLI")
     # 21-27. The actor-critic family at the flagship configurations through
     # their entry points: PPO, PPO with the afterstate critic and its
     # checkpoint (restored on the card and on the CPU), A3C in one pass over
@@ -1614,10 +1860,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     actor_critic_train_phase("a3c/train", dev, a3c_config(), A3C_UPDATES)
     torch.cuda.empty_cache()
-    a3c_parity_phase(dev)
+    a3c_parity_phase(dev, at="after PPO and A3C")
     ppo_cli_phase(dev)
     ppo_bf16_phase(*ppo_trained)
     del ppo_trained
+    lap("PPO, A3C, their checkpoint and CLI")
+    # Last, after every other reading: a profiled update leaves the profiler
+    # with 80 k launches, which has shifted later readings.
+    value_launches = value_launches_phase(sj_trained, dev)
+    del sj_trained
+    lap("value launches per update")
+    log("timing", seconds=json.dumps(laps))
     g, sc = gather["value(afterstates)"], scatter[("stats", NT_B * 2 * 8)]
     sc_big, hp_over = scatter[("stats", NT_B * 2 * 8 * 4)], hp_scatter["overflowing"]
     hp_scatter = hp_scatter["just-refreshed"]
@@ -1694,6 +1947,36 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    sj, leaf, yeh = (values[k] for k in ("SJ_2X4 value(afterstates)", "SJ_2X4 depth-1 leaf chunk", "YEH_4X6 cached value(afterstates)"))
+    kernels.append({
+        "name": "ntuple_value",
+        "route": "cuda",
+        "source": "rein48_tpu_torch/csrc/ntuple_value.cu",
+        # The value path of both gathers, fused with the lookups and sums around them.
+        "replaces": "rein48_tpu/ops/tables.py:102",
+        "also_replaces": "rein48_tpu/ops/hbm_tables.py:222",
+        "launches": nt_launches["ntuple_value"],
+        "equal": True,
+        "max_abs_err": 0.0,
+        "n": sj["n"],
+        "ms": sj["ms"],
+        "ms_leaf_chunk": leaf["ms"],
+        "ms_cached": yeh["ms"],
+        "plain_ms": sj["plain_ms"],
+        "plain_ms_cached": yeh["plain_ms"],
+        "bound_ms": round(sj["bound_ms"], 6),
+        "bound_ms_leaf_chunk": round(leaf["bound_ms"], 6),
+        "bound_ms_cached": round(yeh["bound_ms"], 6),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call computes boards -> summed lookups",
+        "composed_ms": sj["composed_ms"],
+        "composed_launches": sj["composed_launches"],
+        "composed_ms_cached": yeh["composed_ms"],
+        "composed_launches_cached": yeh["composed_launches"],
+        "launches_per_update": {name: r["launches"] for (name, variant), r in value_launches.items() if variant == "fused"},
+        "composed_launches_per_update": {name: r["launches"] for (name, variant), r in value_launches.items() if variant == "composed"},
+    })
     for entry in kernels:
         # The main path's time over the least any launch of this work can take.
         entry["floor_ms"] = floor_ms

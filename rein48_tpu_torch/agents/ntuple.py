@@ -20,9 +20,15 @@ Tables are a plain dict of tensors with the JAX key names
   permuted by 128-entry rows, with ``t{i}_rm`` (int32 logical -> physical
   row map) and ``t{i}_hot`` (int32 logical rows of the hot prefix) beside
   them; :meth:`NTupleNetwork.refresh_cache` derives the permutation anew.
-  Values go through the ``cached_gather`` kernel, delayed windows through
-  ``cached_scatter_stats``, and every other table op runs the plain path
-  on physical ids: the same per-entry math on a relabelled domain.
+  Delayed windows go through the ``cached_scatter_stats`` kernel, and every
+  other table op but the value runs the plain path on physical ids: the
+  same per-entry math on a relabelled domain.
+
+``value`` of ``"mxu"`` and ``"cached"`` is one launch per call on the card of
+the fused kernel of ``ops/ntuple_value.py``: the indices, the exact lookups
+(through the row maps for ``"cached"``) and both sums, in the order the JAX
+package sums. The standalone gather ops stay; only ``gather_value``, the
+composition that the kernel replaced, kept to compare against, calls them.
 
 Unlike the JAX functions, which return new arrays, the update functions
 here add into the tables in place (they are the trainer's state and the
@@ -41,6 +47,7 @@ import torch
 from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core
 from rein48_tpu_torch.ops import hbm_tables
+from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.ops import tables as table_ops
 
 BASE = core.MAX_EXPONENT + 1  # exponents 0..15 -> base-16 digits
@@ -162,6 +169,7 @@ class NTupleNetwork:
             )
         self._mxu = config.backend == "mxu"
         self._cached = config.backend == "cached"
+        self._layout = value_ops.Layout(self._cells, self.indices) if self._mxu or self._cached else None
         self._consts: Dict[torch.device, list] = {}
 
     def _lookup_consts(self, device: torch.device):
@@ -205,17 +213,6 @@ class NTupleNetwork:
             out.append((digits * weights).sum(-1, dtype=torch.int32))
         return tuple(out)
 
-    def _gather(self, params, i: int, idx: torch.Tensor) -> torch.Tensor:
-        table = params[f"t{i}"]
-        if self._mxu:
-            return table_ops.mxu_gather(table, idx)
-        if self._cached:
-            return hbm_tables.cached_gather(
-                table, params[f"t{i}_rm"], params[f"t{i}_hot"], idx,
-                prefix_rows=self.prefix_rows[i], cold_capacity_rows=self.config.cold_capacity_rows,
-            )
-        return table[idx]
-
     def _translate(self, params, i: int, ids: torch.Tensor) -> torch.Tensor:
         """Logical -> physical ids for the plain table ops of ``"cached"``."""
         if not self._cached:
@@ -236,11 +233,49 @@ class NTupleNetwork:
         """V(board) = sum of all table lookups, ``float32[...]``.
 
         Summed over each table's lookups first, then over the tables, as
-        the JAX package sums.
+        the JAX package sums. ``"mxu"`` and ``"cached"`` take the fused
+        kernel (:func:`value_ops.ntuple_value`), which reads each board in
+        place when it lies in 16 consecutive bytes (the engine's
+        afterstates are stored transposed) and otherwise from a copy.
         """
+        if self._layout is None:
+            total = None
+            for i, idx in enumerate(self.indices(boards)):
+                v = params[f"t{i}"][idx].sum(-1)
+                total = v if total is None else total + v
+            return total
+        if value_ops.board_layout(boards) is None:
+            boards = boards.contiguous()
+        if self._cached:
+            n = boards.numel() // core.NUM_CELLS
+            for c in self._cells:
+                hbm_tables.check_padded("cached_gather", n * c.shape[0])
+        tabs, rowmaps = self.value_tables(params)
+        return value_ops.ntuple_value(boards, tabs, self._layout, rowmaps)
+
+    def value_tables(self, params: Dict[str, torch.Tensor]):
+        """``(tables, rowmaps)`` of the value op: the float tables in order,
+        and for ``"cached"`` their row maps (``None`` otherwise)."""
+        ids = range(len(self.table_sizes))
+        rowmaps = [params[f"t{i}_rm"] for i in ids] if self._cached else None
+        return [params[f"t{i}"] for i in ids], rowmaps
+
+    def gather_value(self, params: Dict[str, torch.Tensor], boards: torch.Tensor) -> torch.Tensor:
+        """``value`` through the standalone gather ops, as it was composed
+        before the fused kernel: ``indices``, ``mxu_gather`` or
+        ``cached_gather`` per table, ``.sum(-1)``, an add per table. Not on
+        any path of the port: the comparison for the fused kernel."""
         total = None
         for i, idx in enumerate(self.indices(boards)):
-            v = self._gather(params, i, idx).sum(-1)
+            table = params[f"t{i}"]
+            if self._cached:
+                vals = hbm_tables.cached_gather(
+                    table, params[f"t{i}_rm"], params[f"t{i}_hot"], idx,
+                    prefix_rows=self.prefix_rows[i], cold_capacity_rows=self.config.cold_capacity_rows,
+                )
+            else:
+                vals = table_ops.mxu_gather(table, idx)
+            v = vals.sum(-1)
             total = v if total is None else total + v
         return total
 

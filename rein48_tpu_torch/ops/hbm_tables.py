@@ -190,7 +190,8 @@ def cached_scatter_stats_reference(
 # ------------------------------------------------------------------
 
 
-def _check_padded(what: str, n: int) -> None:
+def check_padded(what: str, n: int) -> None:
+    """Raises when a call of ``n`` elements passes the JAX kernels' bound."""
     # The TPU kernels carry cold positions as float32, exact below 2**24;
     # the bound is kept so that both packages accept the same calls.
     padded = n + (-n % BLOCK)
@@ -249,7 +250,7 @@ def cached_gather(
         raise ValueError(f"rowmap_flat must have shape ({table.shape[0] // ROW},), got {tuple(rowmap_flat.shape)}")
     _check_hot(hot_rows, prefix_rows, dev)
     _check("idx", idx, torch.int32, dev)
-    _check_padded("cached_gather", idx.numel())
+    check_padded("cached_gather", idx.numel())
     if dev.type == "cuda":
         return _launch_gather(table, rowmap_flat, idx)
     if dev.type != "cpu":
@@ -299,7 +300,7 @@ def _scatter(hot_rows, idx, err, prefix_rows: int, cold_capacity_rows: int):
     _check_hot(hot_rows, prefix_rows, dev)
     _check("idx", idx, torch.int32, dev)
     _check("err", err, torch.float32, dev)
-    _check_padded("cached_scatter_stats", idx.numel())
+    check_padded("cached_scatter_stats", idx.numel())
     idx, err = idx.reshape(-1), err.reshape(-1)
     if dev.type == "cuda":
         return _launch_scatter(hot_rows, idx, err, cold_capacity_rows)

@@ -12,7 +12,8 @@ The JAX ``lax.scan`` over the steps of an update is a Python loop here,
 and the tables are updated in place. Acting draws its spawns from the
 engine's Philox streams (``engine/vector.py``). On a card the ``"mxu"``
 backend runs the table kernels of ``ops/tables.py`` and the ``"cached"``
-backend those of ``ops/hbm_tables.py``. ``mesh`` is not yet ported.
+backend those of ``ops/hbm_tables.py``, both the fused value kernel of
+``ops/ntuple_value.py``. ``mesh`` is not yet ported.
 """
 
 from __future__ import annotations

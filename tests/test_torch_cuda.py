@@ -20,6 +20,7 @@ import torch
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
 from rein48_tpu_torch.ops import hbm_tables, tables
+from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.train import a3c, afterstate, common, ppo
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -170,7 +171,19 @@ def test_ntuple_mxu_backend_matches_torch_backend(cuda):
         plain.td_apply_tc(scale, boards, err.abs(), 1.0)  # the same update on magnitudes
     for k in b:
         assert_sums_close(a[k], b[k], scale[k].abs())
-    assert torch.equal(mxu.value(a, boards), plain.value(a, boards))
+    assert_values_match(mxu, plain, a, a, boards)
+
+
+def assert_values_match(net, plain, params, plain_params, boards):
+    """``net.value`` (the fused kernel) bit-equal to its plain version, and
+    within the scaled tolerance of the ``"torch"`` backend, whose
+    ``.sum(-1)`` on the card is not a left fold: the sums' terms are the
+    same lookups, added in another order. The scale is the same value on
+    the tables' magnitudes."""
+    got = net.value(params, boards)
+    assert torch.equal(got, value_ops.ntuple_value_reference(net.indices(boards), *net.value_tables(params)))
+    scale = plain.value({k: v.abs() for k, v in plain_params.items()}, boards)
+    assert_sums_close(got, plain.value(plain_params, boards), scale)
 
 
 def hot_prefix_inputs(n: int, size: int, k: int, device, seed: int = 0):
@@ -314,7 +327,7 @@ def test_ntuple_cached_backend_matches_torch_backend(cuda):
         rows = torch.arange(a["t0"].numel(), dtype=torch.int32, device=cuda)
         b = {k: v[hbm_tables.physical_index(a[f"{k[:2]}_rm"], rows)] for k, v in a.items() if v.dtype == torch.float32}
         scale = {k: v.abs() for k, v in b.items()}
-        assert torch.equal(cached.value(a, boards), plain.value(b, boards))
+        assert_values_match(cached, plain, a, b, boards)
         before = dict(ntuple.cached_windows)
         cached.td_apply_delayed(a, boards, err, 1.0)
         assert ntuple.cached_windows[branch] == before[branch] + 2
@@ -323,6 +336,104 @@ def test_ntuple_cached_backend_matches_torch_backend(cuda):
         for k in b:
             got = a[k][hbm_tables.physical_index(a[f"{k[:2]}_rm"], rows)]
             assert_sums_close(got, b[k], scale[k].abs())
+
+
+def value_inputs(tuples, symmetric: bool, cached: bool, device, seed: int = 0):
+    """A network, its tables (on a random row permutation for ``"cached"``)
+    and what the op takes: ``(net, params, tables, rowmaps)``."""
+    backend = "cached" if cached else "mxu"
+    net = ntuple.NTupleNetwork(ntuple.NTupleConfig(tuples=tuples, symmetric=symmetric, backend=backend, prefix_rows=128))
+    g = torch.Generator().manual_seed(seed)
+    params = {}
+    for i, n in enumerate(net.table_sizes):
+        params[f"t{i}"] = torch.randn(n, generator=g).to(device)
+        if cached:
+            rm = torch.randperm(n // hbm_tables.ROW, generator=g).to(torch.int32)
+            params[f"t{i}_rm"] = rm.to(device)
+            params[f"t{i}_hot"] = torch.argsort(rm)[:128].to(torch.int32).to(device)
+    return (net, params, *net.value_tables(params))
+
+
+def value_boards(n: int, device, seed: int = 0, offset: int = 0) -> torch.Tensor:
+    """``n`` boards of exponents 0..15 (the first all 15) starting ``offset``
+    bytes into their buffer."""
+    g = torch.Generator().manual_seed(seed)
+    raw = torch.randint(0, 16, (16 * n + offset,), generator=g, dtype=torch.uint8)
+    raw[offset : offset + 16 * min(n, 1)] = 15
+    return raw.to(device)[offset:].view(n, 4, 4)
+
+
+VALUE_NETS = [
+    ("TINY_2X3", True, False), ("TINY_2X3", False, False), ("SJ_2X4", True, False), ("SJ_2X4", False, False),
+    ("SJ_2X4", True, True), ("YEH_4X6", True, True), ("YEH_4X6", False, True),
+]
+
+
+@pytest.mark.parametrize("preset, symmetric, cached", VALUE_NETS)
+@pytest.mark.parametrize("n, offset", [(0, 0), (1, 0), (33, 0), (4097, 0), (33, 1), (4097, 7)])
+def test_ntuple_value_kernel_is_bit_equal(cuda, preset, symmetric, cached, n, offset):
+    net, _, tabs, rowmaps = value_inputs(getattr(ntuple, preset), symmetric, cached, cuda, seed=n)
+    boards = value_boards(n, cuda, seed=n + offset, offset=offset)
+    layout = net._layout
+    for b in (boards, boards.mT.contiguous().mT):  # row-major, and stored transposed as the engine's afterstates
+        before = dict(value_ops.launches)
+        got = value_ops.ntuple_value(b, tabs, layout, rowmaps)
+        assert value_ops.launches["ntuple_value"] == before["ntuple_value"] + (n > 0)
+        want = value_ops.ntuple_value_reference(net.indices(b), tabs, rowmaps)
+        assert got.shape == (n,) and torch.equal(got, want)
+        assert torch.equal(value_ops.ntuple_value(b, tabs, layout, rowmaps), got)  # the same bits again
+
+
+@pytest.mark.parametrize("tuples, symmetric", [(ntuple.TINY_2X3 + ((1, 5, 9), (2, 6, 10), (12, 13, 14)), True),
+                                               (tuple((c, c + 1, c + 2) for c in range(10)), False)])
+def test_ntuple_value_kernel_groups_continue_the_sum(cuda, tuples, symmetric):
+    net, _, tabs, _ = value_inputs(tuples, symmetric, False, cuda)
+    boards = value_boards(1000, cuda, seed=2)
+    before = value_ops.launches["ntuple_value"]
+    got = value_ops.ntuple_value(boards, tabs, net._layout)
+    assert value_ops.launches["ntuple_value"] == before + len(net._layout.groups) == before + 2
+    assert torch.equal(got, value_ops.ntuple_value_reference(net.indices(boards), tabs))
+
+
+@pytest.mark.parametrize("backend", ["mxu", "cached"])
+def test_ntuple_value_is_one_launch(cuda, backend):
+    from rein48_tpu_torch.utils import profiling
+
+    tuples = ntuple.SJ_2X4 if backend == "mxu" else ntuple.YEH_4X6
+    net, params, _, _ = value_inputs(tuples, True, backend == "cached", cuda)
+    after = value_boards(4096, cuda).view(1024, 4, 4, 4).mT  # the trainer's afterstates: transposed boards
+    before = {**value_ops.launches, **tables.launches, **hbm_tables.launches}
+    net.value(params, after)
+    counts = {**value_ops.launches, **tables.launches, **hbm_tables.launches}
+    assert {k: counts[k] - before[k] for k in counts} == {
+        "ntuple_value": 1, "table_gather": 0, "table_scatter": 0, "cached_gather": 0, "cached_scatter": 0,
+    }
+    r = profiling.device_breakdown(lambda: net.value(params, after), reps=1, top=4)
+    assert r["launches"] == 1, r
+
+
+def test_ntuple_value_kernel_rejects_bad_inputs(cuda):
+    net, _, tabs, rowmaps = value_inputs(ntuple.SJ_2X4, True, True, cuda)
+    boards = value_boards(8, cuda)
+    layout = net._layout
+    before = dict(value_ops.launches)
+    for args, match in (
+        ((boards.to(torch.int32), tabs, layout, rowmaps), "uint8"),
+        ((boards.reshape(8, 16), tabs, layout, rowmaps), "uint8"),
+        ((boards.cpu(), tabs, layout, rowmaps), "table 0 must be contiguous float32\\[65536\\] on cpu"),
+        ((boards, [tabs[0].cpu(), tabs[1]], layout, rowmaps), "table 0 must be contiguous float32"),
+        ((boards, [tabs[0].half(), tabs[1]], layout, rowmaps), "table 0 must be contiguous float32"),
+        ((boards, tabs[:1], layout, rowmaps), "2 tables"),
+        ((boards, tabs, layout, [rowmaps[0].long(), rowmaps[1]]), "row map 0 must be contiguous int32"),
+        ((boards[::2], tabs, layout, rowmaps), "16 consecutive bytes"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            value_ops.ntuple_value(*args)
+    # A group past the kernel's parameter struct: the grouping path splits
+    # such a network, and the packing refuses it.
+    with pytest.raises(ValueError, match="1 to 8 tables"):
+        value_ops.pack_group([net._cells[0][:1]] * 9)
+    assert value_ops.launches == before
 
 
 @pytest.mark.parametrize("name", common.OPTIMIZERS)
