@@ -26,7 +26,13 @@ its bf16-against-float32 loss, ``train_a3c`` at the A3C flagship and in the
 reference-parity regime, the critic-carrying PPO checkpoint restored on the
 card and on the CPU, and ``train --algo ppo --afterstate`` with a resume,
 ``eval --algo ppo`` greedy and sampled and ``eval --algo search`` on the
-afterstate critic), checks what comes out, and prints one line per phase. Each path runs
+afterstate critic); then the single-game surface (``Game`` on the card,
+``play``, ``parity`` with the C oracle) and the replay family: the DQN
+flagship (ResNet 64x4 bf16, a 2**20-slot buffer on the card) through
+``train_dqn`` with its learn gate, checkpoint (resumed bit for bit), bf16
+against float32 and ``eval --algo dqn``, 5-step DQN, the ``dqn-4k``
+preset, ``train_ddpg``, and ``train --algo dqn|ddpg``; checks what comes
+out, and prints one line per phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -132,6 +138,10 @@ A3C_UPDATES, A3C_PARITY_UPDATES = 4, 3
 # net at 8,192 boards and the learn phase runs it at 65,536, where cuDNN
 # may pick other bf16 algorithms, so the ratios are 1 only up to rounding.
 KL_AT_BEHAVIOR_TOL = 1e-3
+# eval --algo dqn --checkpoint-dir of the DQN flagship, and DDPG's updates
+# (DDPGConfig(): learning from update 10 of 12).
+DQN_EVAL_ENVS, DQN_EVAL_STEPS = 1024, 1000
+DDPG_UPDATES = 12
 
 
 def log(phase: str, **fields) -> None:
@@ -1607,6 +1617,344 @@ def ppo_cli_phase(dev):
             raise AssertionError(f"train/eval --algo ppo gave non-finite values: {finals} {stats}")
 
 
+
+class Probe:
+    """A checkpointer stand-in for a trainer's loop: at each logging point it
+    records ``fn(state)`` by update and saves nothing."""
+
+    def __init__(self, fn):
+        self.fn, self.seen = fn, {}
+
+    def save_config(self, config) -> None:
+        pass
+
+    def latest_step(self):
+        return None
+
+    def maybe_save(self, step, state) -> bool:
+        self.seen[step] = self.fn(state)
+        return False
+
+
+def same_params(module, init: dict) -> bool:
+    return all(torch.equal(v.cpu(), init[k]) for k, v in module.state_dict().items())
+
+
+def game_phase(dev):
+    """``Game(seed=7)`` on the card plays the first legal action to the end;
+    then ``play --control rand`` through the CLI."""
+    from rein48_tpu_torch import Game
+    from rein48_tpu_torch.engine import core
+
+    t0 = time.perf_counter()
+    game = Game(seed=7, device=dev)
+    first = game.reset()
+    ok = {"one_tile_after_reset": int((first != 0).sum()) == 1, "on_device": game._state.boards.device.type == torch.device(dev).type}
+    done, steps, zero_reward, boards_match = False, 0, True, True
+    while not done and steps < 3000:
+        legal = game.legal_actions
+        board, reward, done = game.step(int(np.flatnonzero(legal)[0]) if legal.any() else 0)
+        exps = game._state.boards
+        boards_match &= exps.dtype == torch.uint8 and bool((core.boards_to_values(exps).cpu().numpy() == board).all())
+        boards_match &= bool((board == game.state_matrix).all())
+        zero_reward &= reward == 0.0
+        steps += 1
+    ok.update(boards_match=boards_match, parity_zero_reward=zero_reward, game_over=done)
+    wall = time.perf_counter() - t0
+    out, _ = run_cli_output(["play", "--control", "rand", "--seed", "0"])
+    last = out.strip().splitlines()[-1]
+    log("game", seed=7, steps=steps, wall_s=round(wall, 3), ms_per_step=round(1e3 * wall / steps, 3),
+        tile_sum=int(game.state_matrix.sum()), checks=json.dumps(ok), play=last)
+    if not all(ok.values()) or not last.startswith("game_over=True"):
+        raise AssertionError(f"Game on the card failed its checks: {ok}, play: {last}")
+
+
+def parity_phase():
+    """``parity --seeds 5`` (JAX's default) on the card, the C oracle required."""
+    t0 = time.perf_counter()
+    out, err = run_cli_output(["parity", "--seeds", "5"])
+    wall = time.perf_counter() - t0
+    result = json.loads(out.strip().splitlines()[-1])
+    log("parity", seconds=round(wall, 3), parity=result["parity"], native_oracle=result["native_oracle"],
+        steps=[g["steps"] for g in result["games"]], done=[g["done"] for g in result["games"]])
+    if not (result["parity"] and result["native_oracle"]) or len(result["games"]) != 5:
+        raise AssertionError(f"parity failed or ran without the native oracle: {result}")
+
+
+def dqn_flagship_config(**kw):
+    """``examples/train_dqn_tpu.py:45-51``: 4,096 envs, ResNet 64x4 bf16, two
+    acting steps per update, epsilon to 0.03 over 10M steps; the rest at
+    DQNConfig's defaults (2**20 slots, learn batch 8,192, adam 3e-4, tau
+    0.995, learning from 50,000 transitions)."""
+    from rein48_tpu_torch.train import dqn
+
+    return dqn.DQNConfig(num_envs=4096, model="resnet", acting_steps_per_update=2, epsilon_decay_steps=10_000_000,
+                         epsilon_end=0.03, **kw)
+
+
+def learning_update(cfg) -> int:
+    """The first update whose buffer reaches the learn gate."""
+    per_update = cfg.num_envs * cfg.acting_steps_per_update
+    return -(-min(cfg.min_replay_before_learn, cfg.replay_capacity) // per_update)
+
+
+def replay_trainer_run(name, dev, cfg, updates, train, state_fn):
+    """A replay trainer (``train_dqn``, ``train_ddpg``) at ``cfg`` through its
+    entry point with a :class:`Probe` recording ``state_fn`` per update.
+    Returns ``(state, history, probe, per-update seconds, peak GiB)``."""
+    zero_table_counts()
+    before = kernel_launches()
+    clock = Clock()
+    probe = Probe(state_fn)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, history = train(cfg, updates, seed=SEED, log_every=1, logger=clock, checkpointer=probe, device=dev)
+    wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in kernel_launches().items()}
+    if any(launched.values()):
+        raise AssertionError(f"{name} launched a kernel of another path: {launched}")
+    if len(history) != updates or not all(np.isfinite(v) for r in history for v in r.values()):
+        raise AssertionError(f"{name} records not finite: {history}")
+    per_update = [clock.records[0][0] - t0] + clock.per_update_s()
+    return state, history, probe, per_update, wall, torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def dqn_update_timed(step, state):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state)
+    float(metrics["loss"])
+    return state, time.perf_counter() - t0
+
+
+def dqn_flagship_phase(dev, ckpt_dir):
+    """The DQN flagship through ``train_dqn``: updates 1-6 fill the buffer
+    under the learn gate, 7 and 8 learn. Checked per update by a probe:
+    parameters and Adam's count unchanged through update 6. Then the
+    checkpoint phase (save, restore, two more updates each, bit for bit),
+    timed learning updates, one profiled, and bf16 against float32."""
+    from rein48_tpu_torch.train import dqn
+    from rein48_tpu_torch.utils import flops, profiling
+
+    cfg = dqn_flagship_config()
+    first = learning_update(cfg)
+    init = cfg.make_model(torch.Generator().manual_seed(SEED)).state_dict()
+    state, history, probe, per_update, wall, peak = replay_trainer_run(
+        "dqn/flagship", dev, cfg, 8, dqn.train_dqn, lambda s: (same_params(s.model, init), s.optimizer.count))
+    frozen = all(probe.seen[u] == (True, 0) for u in range(1, first))
+    learned = [probe.seen[u][1] for u in range(first, 9)] == list(range(1, 9 - first + 1)) and not probe.seen[8][0]
+    restored, ck_fields = dqn_checkpoint_phase(state, cfg, ckpt_dir, dev)
+    step = dqn.make_dqn_step(cfg, state.model, state.target_model, state.optimizer)
+    # Two more updates of the live and the restored state, deterministic
+    # algorithms both, so that bit-equality is the checkpoint's to keep.
+    torch.backends.cudnn.deterministic = True
+    rstep = dqn.make_dqn_step(cfg, restored.model, restored.target_model, restored.optimizer)
+    for _ in range(2):
+        state, _ = step(state)
+        restored, _ = rstep(restored)
+    torch.backends.cudnn.deterministic = False
+    resume = dqn_states_equal(state, restored)
+    del restored, rstep
+    counts = {"adam_count_after_10": state.optimizer.count, "replay_size": state.replay.size, "cursor": state.replay.cursor}
+    filled = 10 * cfg.num_envs * cfg.acting_steps_per_update
+    want_counts = {"adam_count_after_10": 10 - first + 1, "replay_size": filled, "cursor": filled % cfg.replay_capacity}
+    timed = []
+    for _ in range(2):
+        state, dt = dqn_update_timed(step, state)
+        timed.append(dt)
+    box = [state]
+
+    def update():
+        box[0] = step(box[0])[0]
+
+    prof = profiling.device_breakdown(update, warmup=0, reps=1, top=5)
+    state = box[0]
+    learn_s = per_update[first - 1:] + timed
+    rates = [cfg.num_envs * cfg.acting_steps_per_update / dt for dt in learn_s]
+    rate = float(np.median(rates))
+    fwd = flops.model_forward_flops(state.model)
+    per_frame = flops.dqn_flops_per_frame(fwd, cfg.learn_batch_size, cfg.num_envs * cfg.acting_steps_per_update)
+    bf16 = dqn_bf16_phase(state, cfg, step)
+    last = history[-1]
+    log(
+        "dqn/flagship", envs=cfg.num_envs, model="resnet 64x4 bf16", acting_steps=cfg.acting_steps_per_update,
+        capacity=cfg.replay_capacity, learn_batch=cfg.learn_batch_size, first_learning_update=first, wall_s=round(wall, 3),
+        ms_per_warmup_update=[round(1e3 * dt, 3) for dt in per_update[:first - 1]],
+        ms_per_learning_update=[round(1e3 * dt, 3) for dt in learn_s], env_steps_per_s=[round(r, 1) for r in rates],
+        env_steps_per_s_median=round(rate, 1), forward_flops_per_board=fwd, model_flops_per_env_step=per_frame,
+        model_tflops_per_s=round(rate * per_frame / 1e12, 3), mfu=round(flops.mfu(rate, per_frame), 5),
+        mfu_peak="989 TFLOP/s bf16 dense (H100 SXM data sheet)", peak_gib=round(peak, 3),
+        profiled_learning_update=json.dumps({k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "launches")}),
+        top_kernels=json.dumps(prof["top"]), frozen_through_gate=frozen, adam_counts=json.dumps(probe.seen),
+        counts=json.dumps(counts), checkpoint=json.dumps(ck_fields), resume_bit_for_bit=json.dumps(resume),
+        bf16_vs_f32=json.dumps(bf16), records=json.dumps({k: round(last[k], 6) for k in ("loss", "td_abs", "q_mean", "epsilon")}),
+    )
+    if not (frozen and learned) or counts != want_counts or not all(resume.values()):
+        raise AssertionError(f"dqn/flagship: gate {frozen} {learned} {probe.seen}, counts {counts}, resume {resume}")
+    if not (bf16["rel_err_loss"] <= LOSS_BF16_RTOL and bf16["rel_err_grad_norm"] <= LOSS_BF16_RTOL):
+        raise AssertionError(f"dqn/flagship: the bf16 loss or gradient norm disagrees with float32: {bf16}")
+    return state, cfg
+
+
+def dqn_states_equal(a, b) -> dict:
+    tensors = lambda s: [*s.model.state_dict().values(), *s.target_model.state_dict().values()]  # noqa: E731
+    return {
+        "nets": all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b))),
+        "optimizer": a.optimizer.count == b.optimizer.count and all(
+            torch.equal(x, y) for m in a.optimizer.moments for x, y in zip(a.optimizer.moments[m], b.optimizer.moments[m])),
+        "replay": (a.replay.cursor, a.replay.size) == (b.replay.cursor, b.replay.size) and all(
+            torch.equal(a.replay.data[k], b.replay.data[k]) for k in a.replay.data),
+        "env": all(torch.equal(getattr(a.env, f.name), getattr(b.env, f.name)) for f in dataclasses.fields(a.env)),
+        "counters": (a.seed, a.update_step, a.env_steps) == (b.seed, b.update_step, b.env_steps),
+    }
+
+
+def dqn_checkpoint_phase(state, cfg, ckpt_dir, dev):
+    """Save the flagship state (its 2**20-slot buffer too) and restore it into
+    an init from another seed: seconds, bytes, and every field equal."""
+    from rein48_tpu_torch.train import dqn
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    ck = Checkpointer(ckpt_dir)
+    ck.save_config(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(state.update_step, state)
+    save_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in (Path(ckpt_dir) / str(state.update_step)).iterdir())
+    fresh = dqn.init_dqn(cfg, SEED + 1, dev)[0]
+    t0 = time.perf_counter()
+    restored = ck.restore(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    equal = dqn_states_equal(state, restored)
+    fields = {"step": state.update_step, "save_s": round(save_s, 4), "restore_s": round(restore_s, 4), "bytes": size,
+              "replay_bytes": sum(v.numel() * v.element_size() for v in state.replay.data.values()), "equal": equal}
+    if not all(equal.values()):
+        raise AssertionError(f"the restored DQN state differs: {equal}")
+    return restored, fields
+
+
+def dqn_bf16_phase(state, cfg, step) -> dict:
+    """One learn batch's loss and gradient norm: the bf16 nets against float32
+    copies of the same weights, on the card without TF32."""
+    from rein48_tpu_torch.train import common, dqn
+
+    kwargs = tuple((k, v) for k, v in cfg.model_kwargs if k != "dtype") + (("dtype", torch.float32),)
+    f32_cfg = dataclasses.replace(cfg, model_kwargs=kwargs)
+    device = next(state.model.parameters()).device
+    model, target = f32_cfg.make_model().to(device), f32_cfg.make_model().to(device)
+    model.load_state_dict(state.model.state_dict())
+    target.load_state_dict(state.target_model.state_dict())
+    f32_step = dqn.make_dqn_step(f32_cfg, model, target, common.make_optimizer("adam", 0.0, list(model.parameters())))
+    batch = step.sample(state.replay, step.sample_indices(state, state.replay))
+    out = {}
+    for name, st in (("bf16", step), ("f32", f32_step)):
+        loss, _ = st.loss(batch)
+        grads = torch.autograd.grad(loss, list(st.model.parameters()), allow_unused=True)
+        out[name] = (float(loss.detach()), float(common.tree_norm(grads)))
+    (lb, gb), (lf, gf) = out["bf16"], out["f32"]
+    return {"boards": cfg.learn_batch_size, "loss_bf16": round(lb, 6), "loss_f32": round(lf, 6), "grad_norm_bf16": round(gb, 6),
+            "grad_norm_f32": round(gf, 6), "rel_err_loss": abs(lb - lf) / lf, "rel_err_grad_norm": abs(gb - gf) / gf,
+            "rtol": LOSS_BF16_RTOL}
+
+
+def dqn_nstep_phase(dev):
+    """``examples/train_dqn_nstep_tpu.py:49-58``: the flagship with 5-step
+    targets at gamma 0.997, 8 updates. Then the next update's draw on the
+    final buffer: every chain lies inside the valid window (its last slot
+    younger than the oldest valid one) and is one env's consecutive steps
+    (each slot's next board is the board of the slot ``num_envs`` later)."""
+    from rein48_tpu_torch.train import dqn
+
+    cfg = dqn_flagship_config(n_step=5, gamma=0.997)
+    state, history, probe, per_update, wall, peak = replay_trainer_run(
+        "dqn/nstep", dev, cfg, 8, dqn.train_dqn, lambda s: s.optimizer.count)
+    first = learning_update(cfg)
+    step = dqn.make_dqn_step(cfg, state.model, state.target_model, state.optimizer)
+    rep, stride, cap = state.replay, cfg.num_envs, cfg.replay_capacity
+    j = step.sample_indices(state, rep)
+    ages = j[:, None] + stride * torch.arange(cfg.n_step, device=dev)
+    slots = (rep.cursor - rep.size + ages) % cap
+    inside = bool((ages < rep.size).all()) and int(j.max()) < rep.size - (cfg.n_step - 1) * stride
+    chained = bool(torch.equal(rep.data["next_board"][slots[:, :-1]], rep.data["board"][slots[:, 1:]]))
+    batch = step.sample(rep, j)
+    finite = bool(torch.isfinite(batch["reward"]).all())
+    log("dqn/nstep", n_step=cfg.n_step, gamma=cfg.gamma, updates=8, wall_s=round(wall, 3),
+        ms_per_update=[round(1e3 * dt, 3) for dt in per_update], first_learning_update=first,
+        adam_counts=json.dumps(probe.seen), chains=cfg.learn_batch_size, chains_inside_window=inside,
+        chains_consecutive=chained, done_share=round(float(batch["done"].float().mean()), 5), peak_gib=round(peak, 3),
+        records=json.dumps({k: round(history[-1][k], 6) for k in ("loss", "td_abs", "q_mean")}))
+    if not (inside and chained and finite) or probe.seen[8] != 8 - first + 1:
+        raise AssertionError(f"dqn/nstep: inside {inside}, consecutive {chained}, finite {finite}, counts {probe.seen}")
+
+
+def dqn_qnet_phase(dev):
+    """The ``dqn-4k`` preset (``QNetwork``, 4,096 envs): 8 updates."""
+    from rein48_tpu_torch import configs
+    from rein48_tpu_torch.train import dqn
+
+    cfg = configs.dqn_4k()
+    state, history, probe, per_update, wall, peak = replay_trainer_run("dqn/qnet", dev, cfg, 8, dqn.train_dqn, lambda s: s.replay.size)
+    log("dqn/qnet", model="qnet (32, 64) dueling bf16", envs=cfg.num_envs, updates=8, wall_s=round(wall, 3),
+        ms_per_update=[round(1e3 * dt, 3) for dt in per_update], replay_size=state.replay.size, peak_gib=round(peak, 3),
+        records=json.dumps({k: round(history[-1][k], 6) for k in ("loss", "td_abs", "q_mean", "epsilon")}))
+    if state.replay.size != 8 * cfg.num_envs:
+        raise AssertionError(f"dqn/qnet: replay size {state.replay.size}")
+
+
+def dqn_eval_phase(ckpt_dir):
+    """``eval --algo dqn --checkpoint-dir`` at 1,024 envs and 1,000 steps."""
+    t0 = time.perf_counter()
+    out, err = run_cli_output(["eval", "--algo", "dqn", "--checkpoint-dir", ckpt_dir, "--num-envs", str(DQN_EVAL_ENVS),
+                               "--max-steps", str(DQN_EVAL_STEPS), "--seed", str(SEED)])
+    wall = time.perf_counter() - t0
+    stats = json.loads(out.strip().splitlines()[-1])
+    log("dqn/eval", envs=DQN_EVAL_ENVS, steps=DQN_EVAL_STEPS, wall_s=round(wall, 3), ms_per_step=round(1e3 * wall / DQN_EVAL_STEPS, 3),
+        restored="restored step 8" in err, stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+    if "restored step 8" not in err or not all(np.isfinite(v) for v in stats.values()):
+        raise AssertionError(f"eval --algo dqn failed: {err} {stats}")
+
+
+def ddpg_phase(dev):
+    """``DDPGConfig()`` through ``train_ddpg`` (2,048 envs, 2**19 slots, batch
+    4,096, learning from 20,000 transitions): 12 updates, a probe checking
+    that the parameters stay through the cold updates while both Adam counts
+    advance from the first."""
+    from rein48_tpu_torch.train import ddpg
+
+    cfg = ddpg.DDPGConfig()
+    first = -(-cfg.min_replay_before_learn // cfg.num_envs)
+    gen = torch.Generator().manual_seed(SEED)
+    actor0, critic0 = cfg.make_actor(gen).state_dict(), cfg.make_critic(gen).state_dict()
+
+    def probe_fn(s):
+        return same_params(s.actor, actor0) and same_params(s.critic, critic0), s.actor_opt.count, s.critic_opt.count
+
+    state, history, probe, per_update, wall, peak = replay_trainer_run("ddpg", dev, cfg, DDPG_UPDATES, ddpg.train_ddpg, probe_fn)
+    cold_ok = all(probe.seen[u] == (True, u, u) for u in range(1, first))
+    warm_ok = all(probe.seen[u] == (False, u, u) for u in range(first, DDPG_UPDATES + 1))
+    log("ddpg", envs=cfg.num_envs, capacity=cfg.replay_capacity, learn_batch=cfg.learn_batch_size, updates=DDPG_UPDATES,
+        first_learning_update=first, wall_s=round(wall, 3), ms_per_update=[round(1e3 * dt, 3) for dt in per_update],
+        env_steps_per_s_learning=[round(cfg.num_envs / dt, 1) for dt in per_update[first - 1:]], peak_gib=round(peak, 3),
+        probe=json.dumps(probe.seen), records=json.dumps({k: round(history[-1][k], 6) for k in ("critic_loss", "actor_loss", "td_abs")}))
+    if not (cold_ok and warm_ok) or state.actor_opt.count != DDPG_UPDATES or state.critic_opt.count != DDPG_UPDATES:
+        raise AssertionError(f"ddpg: cold/learning checks failed: {probe.seen}")
+
+
+def replay_cli_phase():
+    """``train --algo dqn`` and ``train --algo ddpg`` through the CLI, 3
+    updates each at ``--batch-size 1024``."""
+    for algo in ("dqn", "ddpg"):
+        t0 = time.perf_counter()
+        _, err = run_cli_output(["train", "--algo", algo, "--batch-size", "1024", "--updates", "3", "--log-every", "1",
+                                 "--seed", str(SEED)])
+        final = ast.literal_eval(err.split("final: ", 1)[1].strip())
+        log(f"{algo}/cli", wall_s=round(time.perf_counter() - t0, 3), update=final["update"],
+            steps_per_sec=round(final["steps_per_sec"], 1), replay_size=final["replay_size"])
+        if final["update"] != 3 or final["replay_size"] != 3 * 1024 or not all(np.isfinite(v) for v in final.values()):
+            raise AssertionError(f"train --algo {algo} failed: {final}")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1865,6 +2213,23 @@ def main() -> int:
     ppo_bf16_phase(*ppo_trained)
     del ppo_trained
     lap("PPO, A3C, their checkpoint and CLI")
+    torch.cuda.empty_cache()
+    # 28-35. The single-game surface on the card (Game, play, parity with the
+    # C oracle), then the replay family through its entry points: the DQN
+    # flagship with its checkpoint and eval, n-step DQN, the dqn-4k preset,
+    # DDPG, and the CLI. No kernel of the port is on these paths.
+    game_phase(dev)
+    parity_phase()
+    lap("Game, play, parity")
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        dqn_flagship_phase(dev, ckpt_dir)
+        dqn_eval_phase(ckpt_dir)
+    torch.cuda.empty_cache()
+    dqn_nstep_phase(dev)
+    dqn_qnet_phase(dev)
+    ddpg_phase(dev)
+    replay_cli_phase()
+    lap("DQN, DDPG, their checkpoint, eval and CLI")
     # Last, after every other reading: a profiled update leaves the profiler
     # with 80 k launches, which has shifted later readings.
     value_launches = value_launches_phase(sj_trained, dev)

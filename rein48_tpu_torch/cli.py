@@ -2,6 +2,8 @@
 # SPDX-License-Identifier: Apache-2.0
 """Command-line interface of the port (counterpart of ``rein48_tpu/cli.py``).
 
+    python -m rein48_tpu_torch play --control rand --visual
+    python -m rein48_tpu_torch parity --seeds 5
     python -m rein48_tpu_torch bench --batch 65536 --unroll 2048
     python -m rein48_tpu_torch train --algo afterstate --updates 200 --checkpoint-dir ckpt/as
     python -m rein48_tpu_torch eval --algo search --depth 1 --checkpoint-dir ckpt/as
@@ -10,16 +12,23 @@
     python -m rein48_tpu_torch train --algo ppo --afterstate --checkpoint-dir ckpt/ppo
     python -m rein48_tpu_torch eval --algo ppo --sample --checkpoint-dir ckpt/ppo
     python -m rein48_tpu_torch train --algo a3c --parity
+    python -m rein48_tpu_torch train --algo dqn --updates 500 --checkpoint-dir ckpt/dqn
+    python -m rein48_tpu_torch eval --algo dqn --checkpoint-dir ckpt/dqn
+    python -m rein48_tpu_torch train --algo ddpg --updates 500
 
-Ported so far: ``bench``, ``train --algo a3c|ppo|afterstate|ntuple`` (with
-checkpoints and resume; ``--parity`` for a3c, ``--afterstate`` for ppo) and
-``eval --algo a3c|ppo|search|ntuple`` (``--sample`` for a3c and ppo), where
+Every subcommand of the JAX CLI is ported: ``play`` (rand or hand
+control; the reference's ``-c`` aliases), ``parity`` (fixed-seed games of
+the Python oracle, the C oracle and the engine, one JSON line equal to the
+JAX CLI's for the same seeds), ``bench``, ``train --algo
+a3c|ppo|dqn|ddpg|afterstate|ntuple`` (with checkpoints and resume, DDPG
+saving without resuming as in JAX; ``--parity`` for a3c, ``--afterstate``
+for ppo, ``--model mlp`` meaning ``qnet`` for dqn) and ``eval --algo
+a3c|ppo|dqn|search|ntuple`` (``--sample`` for a3c, ppo and dqn), where
 ``search`` plays the snake heuristic or, with ``--checkpoint-dir``, a
 trained value net at its leaves: a PPO checkpoint's afterstate critic where
-it has one. The other subcommands, algorithms and flags exist with the JAX
-CLI's names and say that they are not yet ported. The table backend
-``torch`` is the JAX CLI's ``xla``. Everything runs on ``cuda`` unless
-``--device cpu`` is given.
+it has one. ``--mesh`` is not yet ported. The table backend ``torch`` is
+the JAX CLI's ``xla``. Everything runs on ``cuda`` unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -37,16 +46,107 @@ from typing import Optional, Sequence
 TARGET = 10_000_000.0
 
 
-def _not_ported(what: str):
-    def fn(args: argparse.Namespace) -> int:
-        raise SystemExit(f"{what} is not yet ported to rein48_tpu_torch")
+def _cmd_play(args: argparse.Namespace) -> int:
+    import numpy as np
 
-    return fn
+    from rein48_tpu_torch import control
+    from rein48_tpu_torch.engine.core import RewardMode
+    from rein48_tpu_torch.env import Game
+
+    game = Game(
+        seed=args.seed, reward_mode=RewardMode.MERGE_SCORE if args.score else RewardMode.PARITY_ZERO, device=args.device
+    )
+    is_hand = args.control == "hand"
+    if is_hand:
+        # The reference's banner (main.py:20-33).
+        print("=" * 40)
+        print("Welcome to 2048 (rein48-tpu edition)")
+        print("Actions: U/D/L/R (or up/down/left/right); Ctrl-C quits.")
+        print("=" * 40)
+    steps, done = 0, False
+    rng = np.random.default_rng(args.seed)
+    total_reward = 0.0
+    while not done and steps < args.max_steps:
+        if is_hand or args.visual:
+            print(game.render())
+        if is_hand:
+            action = control.hand_control()
+        else:
+            legal = game.legal_actions
+            if args.legal_only and legal.any():
+                action = int(rng.choice(np.flatnonzero(legal)))
+            else:
+                action = int(rng.integers(0, 4))
+        _, reward, done = game.step(action)
+        total_reward += reward
+        steps += 1
+    print(game.render())
+    # The reference's score: the sum of the tiles (main.py:48).
+    print(f"game_over={done} steps={steps} tile_sum={int(game.state_matrix.sum())} merge_score={total_reward:.0f}")
+    return 0
+
+
+def _cmd_parity(args: argparse.Namespace) -> int:
+    """Fixed-seed trajectory parity (the first graded configuration).
+
+    Plays whole random-policy games three ways: the Python oracle, the C
+    oracle (where a compiler builds it) consuming the action draw on its
+    own stream, and the engine's ``move_boards`` and ``place_tile`` on the
+    device, replaying the oracle's spawn decisions; the boards must agree
+    at every step. Prints the JAX CLI's JSON line and exits 1 on any
+    divergence.
+    """
+    import random as pyrandom
+
+    import numpy as np
+    import torch
+
+    from rein48_tpu_torch import native
+    from rein48_tpu_torch.device import resolve_device
+    from rein48_tpu_torch.engine import core, oracle
+
+    device = resolve_device(args.device)
+
+    def place(board, decision):
+        rank, value = torch.tensor([decision.rank, decision.value_exp], device=device)
+        return core.place_tile(board, rank, value, torch.tensor(True, device=device))
+
+    use_native = native.available()
+    results = []
+    for seed in range(args.seeds):
+        rng = pyrandom.Random(seed)
+        game = oracle.OracleGame(rng=rng)
+        native_game = native.NativeOracleGame(seed) if use_native else None
+        board = place(torch.zeros((4, 4), dtype=torch.uint8, device=device), game.spawn_log[0])
+        if native_game is not None and native_game.state_matrix != game.state_matrix:
+            raise SystemExit(f"native oracle reset diverged (seed {seed})")
+        steps, done, diverged = 0, False, False
+        while not done and steps < args.max_steps:
+            action = oracle.random_action(rng)
+            prev_spawns = len(game.spawn_log)
+            state, _, done = game.step(action)
+            if native_game is not None:
+                # Consume the action draw on the native stream too, then step.
+                native_game.random_action()
+                n_state, _, n_done = native_game.step(action)
+                if n_state != state or n_done != done:
+                    diverged = True
+                    break
+            board = core.move_boards(board, torch.tensor(core.ACTION_ALIASES[action], device=device))[0]
+            if len(game.spawn_log) > prev_spawns:
+                board = place(board, game.spawn_log[-1])
+            if not np.array_equal(core.boards_to_values(board).cpu().numpy(), np.asarray(state)):
+                diverged = True
+                break
+            steps += 1
+        results.append({"seed": seed, "steps": steps, "done": done, "parity": not diverged})
+        print(f"seed {seed}: {'OK ' if not diverged else 'FAIL'} {steps} steps", file=sys.stderr)
+    ok = all(r["parity"] for r in results)
+    print(json.dumps({"parity": ok, "native_oracle": use_native, "games": results}))
+    return 0 if ok else 1
 
 
 def _cmd_train(args: argparse.Namespace) -> int:
-    if args.algo in ("dqn", "ddpg"):
-        raise SystemExit(f"train --algo {args.algo} is not yet ported to rein48_tpu_torch")
     if args.mesh:
         raise SystemExit("train --mesh is not yet ported to rein48_tpu_torch")
     from rein48_tpu_torch.utils.checkpoint import Checkpointer
@@ -56,7 +156,17 @@ def _cmd_train(args: argparse.Namespace) -> int:
     logger = MetricLogger(log_dir=args.log_dir)
     run = dict(num_updates=args.updates, seed=args.seed, log_every=args.log_every, logger=logger, checkpointer=ckpt, device=args.device)
     try:
-        if args.algo == "a3c":
+        if args.algo == "dqn":
+            from rein48_tpu_torch.train.dqn import DQNConfig, train_dqn
+
+            model = args.model if args.model != "mlp" else "qnet"
+            config = DQNConfig(num_envs=args.batch_size, model=model, learning_rate=args.lr)
+            _, history = train_dqn(config, **run)
+        elif args.algo == "ddpg":
+            from rein48_tpu_torch.train.ddpg import DDPGConfig, train_ddpg
+
+            _, history = train_ddpg(DDPGConfig(num_envs=args.batch_size, learning_rate=args.lr), **run)
+        elif args.algo == "a3c":
             from rein48_tpu_torch.train.a3c import A3CConfig, train_a3c
 
             if args.parity:
@@ -115,8 +225,6 @@ def _model_kwargs(saved: dict, field: str = "model_kwargs") -> dict:
 
 
 def _cmd_eval(args: argparse.Namespace) -> int:
-    if args.algo == "dqn":
-        raise SystemExit("eval --algo dqn is not yet ported to rein48_tpu_torch")
     from rein48_tpu_torch.device import resolve_device
     from rein48_tpu_torch.models import nets
     from rein48_tpu_torch.train import common
@@ -135,16 +243,19 @@ def _cmd_eval(args: argparse.Namespace) -> int:
         return flag_value if flag_value is not None else saved.get(key, default)
 
     obs_encoding = setting(args.obs_encoding, "obs_encoding", "onehot")
-    if args.algo in ("a3c", "ppo"):
+    if args.algo in ("a3c", "ppo", "dqn"):
         import torch
 
+        from rein48_tpu_torch.train.dqn import DQNConfig
         from rein48_tpu_torch.train.evaluate import evaluate_policy
 
-        # The policy net; a PPO checkpoint's afterstate critic is for search.
-        model = nets.make_model(
-            setting(args.model, "model", "resnet"), in_channels=common.obs_channels(obs_encoding),
-            generator=torch.Generator().manual_seed(0), **_model_kwargs(saved),
-        )
+        # The policy net (a PPO checkpoint's afterstate critic is for
+        # search), or the Q net, whose values the policy takes as logits.
+        name, kwargs, generator = setting(args.model, "model", "resnet"), _model_kwargs(saved), torch.Generator().manual_seed(0)
+        if args.algo == "dqn":
+            model = DQNConfig(model=name, model_kwargs=tuple(kwargs.items()), obs_encoding=obs_encoding).make_model(generator)
+        else:
+            model = nets.make_model(name, in_channels=common.obs_channels(obs_encoding), generator=generator, **kwargs)
         if ckpt is not None:
             model.load_state_dict(ckpt.restore_field("model"))
             print(f"restored step {ckpt.latest_step()}", file=sys.stderr)
@@ -261,16 +372,41 @@ def _cmd_bench(args: argparse.Namespace) -> int:
     return 0
 
 
+def _normalize_control(value: str) -> str:
+    # The reference's alias sets (main.py:64-69).
+    if value in ("r", "rand", "random", "Random"):
+        return "rand"
+    if value in ("h", "hand", "human", "Hand"):
+        return "hand"
+    raise argparse.ArgumentTypeError(f"unknown control '{value}' (choose rand/hand)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="rein48_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    for name in ("play", "parity"):
-        sub.add_parser(name, help=f"{name} (not yet ported)").set_defaults(fn=_not_ported(name))
+    pp = sub.add_parser("play", help="play one game (rand or hand control)")
+    pp.add_argument("-c", "--control", type=_normalize_control, default="rand")
+    pp.add_argument("-v", "--visual", action="store_true")
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--max-steps", type=int, default=10000)
+    # Always on, as in the JAX CLI (store_true with a True default).
+    pp.add_argument("--legal-only", action="store_true", default=True)
+    pp.add_argument("--score", action="store_true", help="pay merge score")
+    pp.add_argument("--device", default=None, help="cuda (default) or cpu")
+    pp.set_defaults(fn=_cmd_play)
 
-    pt = sub.add_parser("train", help="train an agent (ported: --algo a3c, ppo, afterstate, ntuple)")
+    pr = sub.add_parser("parity", help="fixed-seed parity check vs reference")
+    pr.add_argument("--seeds", type=int, default=5)
+    pr.add_argument("--max-steps", type=int, default=3000)
+    pr.add_argument("--device", default=None, help="cuda (default) or cpu")
+    pr.set_defaults(fn=_cmd_parity)
+
+    pt = sub.add_parser("train", help="train an agent")
     pt.add_argument("--algo", choices=("a3c", "ppo", "dqn", "ddpg", "ntuple", "afterstate"), default="a3c")
-    pt.add_argument("--model", default="resnet", help="mlp | cnn | resnet (afterstate: the value net)")
+    pt.add_argument(
+        "--model", default="resnet", help="mlp | cnn | resnet (afterstate: the value net; dqn: mlp means qnet; ddpg: unused)"
+    )
     pt.add_argument("--updates", type=int, default=200)
     pt.add_argument("--batch-size", type=int, default=4096)
     pt.add_argument("--unroll", type=int, default=32)
@@ -307,7 +443,7 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--depth", type=int, default=1, help="expectimax depth (ntuple depth 0: the greedy afterstate policy)")
     pe.add_argument(
         "--checkpoint-dir", default=None,
-        help="a3c/ppo: the trained policy (a fresh init without); search: the trained value net as the leaf",
+        help="a3c/ppo/dqn: the trained policy or Q net (a fresh init without); search: the trained value net as the leaf",
     )
     pe.add_argument("--num-envs", type=int, default=512)
     pe.add_argument("--max-steps", type=int, default=4096)

@@ -1,6 +1,6 @@
 # Copyright 2026 The rein48-tpu Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""2048 engine in PyTorch: move algebra, batched engine, fused rollout kernel."""
+"""2048 engine in PyTorch: move algebra, single-env and batched engines, fused rollout kernel."""
 
 from rein48_tpu_torch.engine.core import (  # noqa: F401
     ACTION_ALIASES,
@@ -20,6 +20,9 @@ from rein48_tpu_torch.engine.core import (  # noqa: F401
     legal_action_mask,
     move_boards,
     place_tile,
+    random_spawn,
+    reset,
+    step,
     values_to_boards,
 )
 from rein48_tpu_torch.engine.vector import (  # noqa: F401
@@ -27,4 +30,5 @@ from rein48_tpu_torch.engine.vector import (  # noqa: F401
     reset_batch,
     rollout_random,
     step_autoreset,
+    step_batch,
 )

@@ -13,7 +13,9 @@ Differences from the JAX core, all inside the same semantics:
 
 * random words are int64 tensors holding 32-bit values (CPU torch has no
   ``>>`` on ``uint32``), drawn from per-env Philox streams
-  (``engine/philox.py``) instead of threefry keys;
+  (``engine/philox.py``) instead of threefry keys; the single-env
+  :func:`reset` and :func:`step` take their spawn uniforms from those words
+  (``philox.uniform_from_words``) and spawn by JAX's float32 formula;
 * tile values come from integer shifts, not float ``exp2`` (exact on any
   device; the JAX core's ``exp2`` is exact on the CPU only).
 """
@@ -26,7 +28,7 @@ import enum
 import numpy as np
 import torch
 
-from rein48_tpu_torch.engine import lut
+from rein48_tpu_torch.engine import lut, philox
 
 UP, DOWN, LEFT, RIGHT = 0, 1, 2, 3
 NUM_ACTIONS = 4
@@ -214,6 +216,29 @@ def spawn_exp_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where((bits >> 8) < SPAWN4_THRESHOLD_24, 2, 1)
 
 
+def random_spawn(boards: torch.Tensor, u_idx: torch.Tensor, u_val: torch.Tensor, enabled: torch.Tensor) -> torch.Tensor:
+    """Spawn a tile on a uniform blank cell from two float32 uniforms.
+
+    The JAX single-env spawn's float arithmetic: the rank is
+    ``min(floor(u_idx * n_blanks), max(n_blanks - 1, 0))``, the float32
+    product of the same uniforms giving the same rank on any device, and
+    the tile a 2 where ``u_val > 0.1``, else a 4. Shape-polymorphic in the
+    leading dims; ``u_idx``, ``u_val`` and ``enabled`` are ``[...]``.
+    """
+    n_blanks = (boards == 0).flatten(-2).sum(-1)
+    rank = torch.minimum((u_idx * n_blanks.to(torch.float32)).to(torch.int64), (n_blanks - 1).clamp(min=0))
+    value_exp = torch.where(u_val > 0.1, 1, 2)
+    return place_tile(boards, rank, value_exp, enabled)
+
+
+def spawn_uniforms(words: torch.Tensor, first: int = philox.SPAWN_RANK):
+    """The two spawn uniforms ``(u_idx, u_val)`` from a step's five stream
+    words ``[..., 5]``: the ``SPAWN_*`` pair, or the ``RESET_*`` pair with
+    ``first=philox.RESET_RANK``."""
+    u = philox.uniform_from_words(words[..., first : first + 2])
+    return u[..., 0], u[..., 1]
+
+
 def is_game_over(boards: torch.Tensor) -> torch.Tensor:
     """Board full and no equal 4-neighbour pair."""
     full = (boards != 0).flatten(-2).all(-1)
@@ -263,3 +288,52 @@ def values_to_boards(values: np.ndarray) -> np.ndarray:
     nz = values > 0
     out[nz] = np.round(np.log2(values[nz])).astype(np.uint8)
     return out
+
+
+def reset(seed, env_id=0, *, uniforms=None, device=None) -> EnvState:
+    """Fresh state: a zero board and ONE tile, as the reference resets.
+
+    The counterpart of ``core.reset(key)``: the tile comes from the
+    ``RESET_*`` words of step 0 of the stream ``(seed, env_id)`` through
+    :func:`random_spawn`, or from ``uniforms`` ``(u_idx, u_val)`` when given.
+    ``env_id`` is an int or an int64 tensor (a batch of ``[...]`` states);
+    stepping starts at counter 1.
+    """
+    env_id = torch.as_tensor(env_id, dtype=torch.int64, device=device)
+    seed = torch.full_like(env_id, seed) if not torch.is_tensor(seed) else seed.to(env_id.device)
+    if uniforms is None:
+        uniforms = spawn_uniforms(philox.step_words(seed, env_id, torch.zeros_like(env_id)), philox.RESET_RANK)
+    boards = torch.zeros(env_id.shape + (BOARD_SIZE, BOARD_SIZE), dtype=torch.uint8, device=env_id.device)
+    boards = random_spawn(boards, *uniforms, torch.ones_like(env_id, dtype=torch.bool))
+    return EnvState(
+        boards=boards,
+        score=torch.zeros(env_id.shape, dtype=torch.float32, device=env_id.device),
+        steps=torch.zeros(env_id.shape, dtype=torch.int32, device=env_id.device),
+        done=torch.zeros(env_id.shape, dtype=torch.bool, device=env_id.device),
+        seed=seed,
+        env_id=env_id,
+        counter=torch.ones_like(env_id),
+    )
+
+
+def step(state: EnvState, action, reward_mode: RewardMode = RewardMode.MERGE_SCORE, *, uniforms=None):
+    """One transition with no auto-reset, in JAX's order: move, spawn where
+    the move changed the board, game-over, then the reward by mode.
+
+    The spawn's uniforms are the ``SPAWN_*`` words of the stream at
+    ``state.counter`` (then counted), or ``uniforms`` ``(u_idx, u_val)``.
+    Shape-polymorphic, so it also steps a batch (``vector.step_batch``).
+
+    Returns ``(new_state, reward float32, done bool)``.
+    """
+    action = torch.as_tensor(action, device=state.boards.device)
+    if uniforms is None:
+        uniforms = spawn_uniforms(philox.step_words(state.seed, state.env_id, state.counter))
+    new_board, merge_score, changed = move_boards(state.boards, action)
+    new_board = random_spawn(new_board, *uniforms, changed)
+    done = is_game_over(new_board)
+    reward = torch.zeros_like(merge_score) if reward_mode == RewardMode.PARITY_ZERO else merge_score
+    new_state = dataclasses.replace(
+        state, boards=new_board, done=done, score=state.score + merge_score, steps=state.steps + 1, counter=state.counter + 1
+    )
+    return new_state, reward, done

@@ -61,7 +61,7 @@ ACTION, SPAWN_RANK, SPAWN_VALUE, RESET_RANK, RESET_VALUE = range(WORDS_PER_STEP)
 LEARNER_TAG = 0x4C524E52
 # Learner purposes: the high 16 bits of the third counter word; the low 16
 # bits number the draws of one purpose within an update (an epoch).
-SHUFFLE, EPSILON, SAMPLE, DROPOUT = 1, 2, 3, 4
+SHUFFLE, EPSILON, SAMPLE, DROPOUT, REPLAY = 1, 2, 3, 4, 5
 
 MASK32 = 0xFFFFFFFF
 PHILOX_M0 = 0xD2511F53
@@ -161,6 +161,12 @@ def learner_words(seed: int, update_step: int, purpose: int, shape, *, index: in
         blocks, word(update_step), word((purpose << 16) | index), word(LEARNER_TAG), word(seed), word(seed >> 32)
     )
     return torch.stack(torch.broadcast_tensors(*words), dim=-1).flatten()[:n].reshape(shape)
+
+
+def below_from_words(words: torch.Tensor, n) -> torch.Tensor:
+    """Integers in ``[0, n)`` from 32-bit words: ``(word * n) >> 32``, exact in
+    int64 for ``n <= 2**31`` (an int or an int64 tensor that broadcasts)."""
+    return (words * n) >> 32
 
 
 def uniform_from_words(words: torch.Tensor) -> torch.Tensor:

@@ -155,6 +155,22 @@ def step_autoreset(
     return _advance(state, actions, words, reward_mode)
 
 
+def step_batch(
+    state: EnvState,
+    actions: torch.Tensor,
+    reward_mode: RewardMode = RewardMode.MERGE_SCORE,
+    *,
+    uniforms=None,
+):
+    """Batched plain step, no auto-reset: ``core.step`` over ``[B]`` states.
+
+    Each env spawns from its own stream's uniforms, or from ``uniforms``
+    ``(u_idx, u_val)``, float32 ``[B]`` each. Returns ``(new_state, reward,
+    done)``.
+    """
+    return core.step(state, actions, reward_mode, uniforms=uniforms)
+
+
 def rollout_random(
     state: EnvState,
     num_steps: int,

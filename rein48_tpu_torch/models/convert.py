@@ -5,14 +5,16 @@
 The inputs are the JAX parameters with their leaves as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 
-* Flax ``A3CMLP``, ``CNNPolicy`` and ``ResNetPolicy``: convolution kernels
+* Flax ``A3CMLP``, ``CNNPolicy``, ``ResNetPolicy`` and ``QNetwork``: convolution kernels
   go from HWIO to OIHW and dense kernels from ``[in, out]`` to ``[out,
   in]``. The port's nets flatten channels last in the same (h, w, c) order
   as Flax, so no dense weight is permuted.
 * Trainer states (afterstate TD, PPO with one net or the ``{"policy",
-  "after"}`` pair, A3C): the parameters as above, optax's ``mu``/``nu``
-  (trees shaped as the parameters, so they map the same way) and ``count``
-  into the port's optimizer, and the env's boards and episode counters.
+  "after"}`` pair, A3C, DQN, DDPG): the parameters as above, optax's
+  ``mu``/``nu`` (trees shaped as the parameters, so they map the same way)
+  and ``count`` into the port's optimizers, the env's boards and episode
+  counters, and for the replay learners the target nets and the replay
+  buffer with its cursor and size.
 * N-tuple tables: the same keys and flat float32 tables. The ``"cached"``
   backend's permutation state comes across as int32 beside them:
   ``t{i}_rm``, one physical row per logical row of 128 entries (a
@@ -89,8 +91,24 @@ def params_from_flax(params) -> dict[str, torch.Tensor]:
     return _tensors(out)
 
 
+def qnet_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """``state_dict`` of :class:`QNetwork` (dueling or plain) from a Flax ``params`` tree."""
+    out = {}
+    for i in range(sum(1 for k in params if k.startswith("conv"))):
+        out.update(_conv(params[f"conv{i}"], f"convs.{i}"))
+    for name in ("trunk", "advantage", "state_value", "q"):
+        if name in params:
+            out.update(_dense(params[name], name))
+    return _tensors(out)
+
+
 _LOADERS = {"mlp": mlp_params_from_flax, "cnn": cnn_params_from_flax, "resnet": params_from_flax}
-_NAMES = {nets.A3CMLP: "mlp", nets.CNNPolicy: "cnn", nets.ResNetPolicy: "resnet"}
+_BY_TYPE = {
+    nets.A3CMLP: mlp_params_from_flax,
+    nets.CNNPolicy: cnn_params_from_flax,
+    nets.ResNetPolicy: params_from_flax,
+    nets.QNetwork: qnet_params_from_flax,
+}
 
 
 def _shape_kwargs(name: str, params) -> dict:
@@ -123,7 +141,7 @@ def model_from_flax(name: str, params, **kwargs) -> nn.Module:
 
 def state_dict_from_flax(module: nn.Module, params) -> dict[str, torch.Tensor]:
     """``module``'s ``state_dict`` from Flax parameters of the same net."""
-    return _LOADERS[_NAMES[type(module)]](params)
+    return _BY_TYPE[type(module)](params)
 
 
 def resnet_from_flax(params, dtype=torch.bfloat16) -> ResNetPolicy:
@@ -131,25 +149,37 @@ def resnet_from_flax(params, dtype=torch.bfloat16) -> ResNetPolicy:
     return model_from_flax("resnet", params, dtype=dtype)
 
 
+def _load_optimizer(optimizer, modules, moments, count) -> None:
+    """Load the optax ``moments`` (name -> a tree per module, shaped as the
+    parameters) and ``count`` into ``optimizer``, in the order of its
+    parameters (the modules' in turn)."""
+    lists = {m: [] for m in moments}
+    for i, module in enumerate(modules):
+        names = [n for n, _ in module.named_parameters()]
+        for m, trees in moments.items():
+            sd = state_dict_from_flax(module, trees[i])
+            lists[m] += [sd[n] for n in names]
+    optimizer.load_state_dict({"name": optimizer.name, "count": int(count or 0), **lists})
+
+
+def _load_env(dst_env, env) -> None:
+    """Copy the JAX env's ``boards``, ``score``, ``steps`` and ``done``; the
+    port's Philox counters stay as they are."""
+    for name in ("boards", "score", "steps", "done"):
+        dst = getattr(dst_env, name)
+        dst.copy_(torch.from_numpy(np.array(env[name])).to(dst.dtype))
+
+
 def _load_trainer_state(state, modules, params, moments, count, env):
     """Load ``params`` (a tree per module) into ``modules``, the optimizer's
-    ``moments`` (name -> a tree per module, shaped as the parameters) and
-    ``count`` into ``state.optimizer`` in the order of its parameters, and
-    the JAX env's fields into ``state.env``."""
+    ``moments`` and ``count`` into ``state.optimizer``, and the JAX env's
+    fields into ``state.env``."""
     for module, tree in zip(modules, params):
         module.load_state_dict(state_dict_from_flax(module, tree))
     if moments:
-        lists = {m: [] for m in moments}
-        for i, module in enumerate(modules):
-            names = [n for n, _ in module.named_parameters()]
-            for m, trees in moments.items():
-                sd = state_dict_from_flax(module, trees[i])
-                lists[m] += [sd[n] for n in names]
-        state.optimizer.load_state_dict({"name": state.optimizer.name, "count": int(count or 0), **lists})
+        _load_optimizer(state.optimizer, modules, moments, count)
     if env is not None:
-        for name in ("boards", "score", "steps", "done"):
-            dst = getattr(state.env, name)
-            dst.copy_(torch.from_numpy(np.array(env[name])).to(dst.dtype))
+        _load_env(state.env, env)
     return state
 
 
@@ -191,6 +221,55 @@ def a3c_state_from_jax(state, params, *, mu=None, nu=None, count=None, env=None)
     """Load a JAX ``A3CTrainState`` into the port's ``A3CTrainState``, as
     :func:`afterstate_state_from_jax`."""
     return _load(state, [state.model], params, mu, nu, count, env)
+
+
+def _load_replay(dst, replay) -> None:
+    """The JAX ``ReplayState``'s ``data`` (field -> numpy), ``cursor`` and
+    ``size`` into the port's buffer ``dst``, in place."""
+    for k, buf in dst.data.items():
+        buf.copy_(torch.from_numpy(np.array(replay["data"][k])).to(buf.dtype))
+    dst.cursor, dst.size = int(replay["cursor"]), int(replay["size"])
+
+
+def dqn_state_from_jax(state, params, *, target_params=None, mu=None, nu=None, count=None, env=None, replay=None, env_steps=None):
+    """Load a JAX ``DQNTrainState`` into the port's ``DQNTrainState``.
+
+    ``params`` and ``target_params`` are Flax trees with numpy leaves (the
+    target defaults to ``params``); ``mu``, ``nu`` and ``count`` the adam
+    state (``opt_state[1][0]``), as :func:`afterstate_state_from_jax` takes
+    them; ``env`` the env's fields; ``replay`` a dict of the buffer's
+    ``data`` (field -> numpy ``[capacity, ...]``), ``cursor`` and ``size``;
+    ``env_steps`` the step count. Returns ``state``.
+    """
+    _load(state, [state.model], params, mu, nu, count, env)
+    state.target_model.load_state_dict(state_dict_from_flax(state.target_model, params if target_params is None else target_params))
+    if replay is not None:
+        _load_replay(state.replay, replay)
+    if env_steps is not None:
+        state.env_steps = int(env_steps)
+    return state
+
+
+def ddpg_state_from_jax(state, *, actor, critic, target_actor=None, target_critic=None, actor_opt=None, critic_opt=None, env=None, replay=None):
+    """Load a JAX ``DDPGTrainState`` into the port's ``DDPGTrainState``.
+
+    ``actor``/``critic`` and their targets (default: the nets) are Flax
+    trees with numpy leaves; ``actor_opt``/``critic_opt`` each a dict of the
+    adam state's ``mu``, ``nu`` and ``count``; ``env`` and ``replay`` as
+    :func:`dqn_state_from_jax` takes them. Returns ``state``.
+    """
+    pairs = ((state.actor, actor, target_actor, state.target_actor, state.actor_opt, actor_opt),
+             (state.critic, critic, target_critic, state.target_critic, state.critic_opt, critic_opt))
+    for module, tree, target_tree, target, opt, opt_state in pairs:
+        module.load_state_dict(state_dict_from_flax(module, tree))
+        target.load_state_dict(state_dict_from_flax(target, tree if target_tree is None else target_tree))
+        if opt_state is not None:
+            _load_optimizer(opt, [module], {m: [opt_state[m]] for m in ("mu", "nu")}, opt_state["count"])
+    if env is not None:
+        _load_env(state.env, env)
+    if replay is not None:
+        _load_replay(state.replay, replay)
+    return state
 
 
 _NTUPLE_KEY = re.compile(r"t(\d+)(_E|_A|_rm|_hot)?")

@@ -7,6 +7,9 @@
 * :class:`CNNPolicy`: two 2x2 ``VALID`` convolutions and linear policy and
   value heads.
 * :class:`ResNetPolicy`: the flagship residual policy+value tower.
+* :class:`QNetwork`: Q(s, .) over all actions, with optional dueling
+  heads, for the DQN family (reached through ``DQNConfig.make_model``,
+  not the registry, as in JAX).
 
 The modules keep the Flax layout at their public edge: they take the
 ``[..., 4, 4, C]`` observation (channels last; ``C`` is 16 for the one-hot
@@ -247,6 +250,46 @@ class ResNetPolicy(nn.Module):
             logits.to(torch.float32).reshape(lead + (NUM_ACTIONS,)),
             value.to(torch.float32).reshape(lead),
         )
+
+
+class QNetwork(nn.Module):
+    """Q(s, .) over all actions; optional dueling heads (``nets.py:163-192``).
+
+    conv 2x2 ``VALID`` ``channels[0]``, relu, conv 2x2 ``VALID``
+    ``channels[1]``, relu, flatten (h, w, c), dense ``hidden`` (``trunk``),
+    relu, then ``q = v + a - mean(a)`` from the ``advantage`` and
+    ``state_value`` heads, or one ``q`` head; computed in ``dtype``,
+    returned as float32 ``[..., 4]``.
+    """
+
+    def __init__(
+        self, channels=(32, 64), hidden: int = 128, dueling: bool = True, dtype=torch.bfloat16, generator=None,
+        in_channels: int = 16,
+    ):
+        super().__init__()
+        self.dueling, self.dtype = dueling, dtype
+        cins = (in_channels,) + tuple(channels[:-1])
+        self.convs = nn.ModuleList(Conv(i, o, dtype, size=2, padding=0) for i, o in zip(cins, channels))
+        self.trunk = Dense((4 - len(channels)) ** 2 * channels[-1], hidden, dtype)
+        if dueling:
+            self.advantage = Dense(hidden, NUM_ACTIONS, dtype)
+            self.state_value = Dense(hidden, 1, dtype)
+        else:
+            self.q = Dense(hidden, NUM_ACTIONS, dtype)
+        _reset(self, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        lead = obs.shape[:-3]
+        x = obs.reshape((-1,) + obs.shape[-3:])
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        x = F.relu(self.trunk(x.flatten(1)))
+        if self.dueling:
+            adv = self.advantage(x)
+            q = self.state_value(x) + adv - adv.mean(-1, keepdim=True)
+        else:
+            q = self.q(x)
+        return q.to(torch.float32).reshape(lead + (NUM_ACTIONS,))
 
 
 _MODELS = {"mlp": A3CMLP, "cnn": CNNPolicy, "resnet": ResNetPolicy}

@@ -6,11 +6,11 @@ The JAX package writes orbax checkpoints; this module has its own format
 and reads no orbax checkpoint (JAX parameters come across through
 ``models/convert.py``). A checkpoint is ``<directory>/<step>/state.pt``, one
 ``torch.save`` of the state's fields: a module as its ``state_dict``, an
-optimizer as its ``state_dict``, an ``EnvState`` or a dict of tensors as
-tensors, and plain values (the learner's seed, the update step, an absent
-second net) as they are. Tensors are stored on the CPU and restored onto
-the devices of the state they are restored into, so a run saved on one
-device resumes on another. The env's Philox counters come back bit for
+optimizer as its ``state_dict``, a dataclass (an ``EnvState``, a replay
+buffer) field by field, a dict of tensors as tensors, and plain values (the
+learner's seed, the update step, an absent second net) as they are. Tensors
+are stored on the CPU and restored onto the devices of the state they are
+restored into, so a run saved on one device resumes on another. The env's Philox counters come back bit for
 bit, and the learner's draws are named by the seed and the update step
 (``engine/philox.py``), so a resumed run continues as the uninterrupted one
 would, on any device.
@@ -34,7 +34,6 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from rein48_tpu_torch.engine.core import EnvState
 from rein48_tpu_torch.train.common import Optimizer
 
 _STATE_FILE = "state.pt"
@@ -46,8 +45,8 @@ def _pack(value: Any) -> Any:
         return {k: v.detach().cpu() for k, v in value.state_dict().items()}
     if isinstance(value, Optimizer):
         return value.state_dict()
-    if isinstance(value, EnvState):
-        return {f.name: getattr(value, f.name).cpu() for f in dataclasses.fields(value)}
+    if dataclasses.is_dataclass(value):
+        return {f.name: _pack(getattr(value, f.name)) for f in dataclasses.fields(value)}
     if isinstance(value, dict):
         return {k: _pack(v) for k, v in value.items()}
     if torch.is_tensor(value):
@@ -64,8 +63,8 @@ def _unpack(like: Any, saved: Any) -> Any:
     if isinstance(like, Optimizer):
         like.load_state_dict(saved)
         return like
-    if isinstance(like, EnvState):
-        return EnvState(**{f.name: saved[f.name].to(getattr(like, f.name).device) for f in dataclasses.fields(like)})
+    if dataclasses.is_dataclass(like):
+        return dataclasses.replace(like, **{f.name: _unpack(getattr(like, f.name), saved[f.name]) for f in dataclasses.fields(like)})
     if isinstance(like, dict):
         if set(like) != set(saved):
             raise ValueError(f"checkpoint holds keys {sorted(saved)}, the state {sorted(like)}")

@@ -90,3 +90,11 @@ def a3c_flops_per_frame(forward_flops: float) -> float:
 def mfu(frames_per_sec: float, flops_per_frame: float, peak: float = PEAK_BF16_H100_SXM) -> float:
     """Model FLOPs utilisation in [0, 1]: achieved over ``peak``."""
     return frames_per_sec * flops_per_frame / peak
+
+
+def dqn_flops_per_frame(forward_flops: float, learn_batch_size: int, frames_per_update: int) -> float:
+    """The DQN trainer's model FLOPs per frame (``benchmarks/mfu_report.py``):
+    one acting forward, and per learned sample two forwards (online and
+    target at s') and one forward+backward (online at s), scaled by the
+    samples learned per frame."""
+    return forward_flops * (1.0 + learn_batch_size / frames_per_update * (2.0 + 3.0))

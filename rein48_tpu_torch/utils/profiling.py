@@ -15,7 +15,9 @@ depth-1 evaluation, ``ntuple``; one delayed update of the YEH_4X6 trainer
 on ``"cached"`` and on ``"torch"``, ``cached``; one flagship afterstate-TD
 update and each of its two phases, ``afterstate``; one flagship PPO update,
 with and without the afterstate critic, and its phases, ``ppo``; one
-flagship A3C update and its phases, ``a3c``):
+flagship A3C update and its phases, ``a3c``; one learning update of the
+DQN flagship and of DDPG at its defaults and their acting and learn phases,
+``dqn``):
 
     python -m rein48_tpu_torch.utils.profiling [group ...]
 
@@ -77,6 +79,7 @@ def main() -> None:
     profilers = {
         "rollout": _profile_rollout, "serve": _profile_serve, "ntuple": _profile_ntuple,
         "cached": _profile_cached, "afterstate": _profile_afterstate, "ppo": _profile_ppo, "a3c": _profile_a3c,
+        "dqn": _profile_dqn,
     }
     groups = sys.argv[1:] or list(profilers)
     unknown = set(groups) - set(profilers)
@@ -223,6 +226,40 @@ def _profile_a3c(dev, out) -> None:
     cfg = a3c.A3CConfig(batch_size=8192, gamma=0.997, lr_decay_updates=12000, entropy_beta_final=0.002, entropy_decay_updates=9600)
     state, model, opt = a3c.init_a3c(cfg, 0, dev)
     _profile_phases("a3c train B=8192 T=32 resnet 64x4 bf16", state, a3c.make_a3c_step(cfg, model, opt), out)
+
+
+def _profile_replay(name, state, step, out) -> None:
+    """One learning update of a replay trainer, after enough updates to open
+    its learn gate, and each of its two phases."""
+    cfg = step.config
+    per_update = cfg.num_envs * getattr(cfg, "acting_steps_per_update", 1)
+    for _ in range(-(-min(cfg.min_replay_before_learn, cfg.replay_capacity) // per_update)):
+        state = step(state)[0]
+    box = [state]
+
+    def update():
+        box[0] = step(box[0])[0]
+
+    out[f"{name} (one learning update)"] = device_breakdown(update, warmup=1, reps=2, top=8)
+    acted = step.act(box[0])
+    out[f"{name} (acting phase)"] = device_breakdown(lambda: step.act(box[0]), warmup=0, reps=2, top=8)
+    out[f"{name} (learn phase)"] = device_breakdown(lambda: step.learn(box[0], acted[1]), warmup=0, reps=2, top=8)
+
+
+def _profile_dqn(dev, out) -> None:
+    from rein48_tpu_torch.train import ddpg, dqn
+
+    # The DQN flagship (examples/train_dqn_tpu.py:45-51): 4,096 envs, ResNet
+    # 64x4 bf16, two acting steps per update, 2**20 slots, batch 8,192; then
+    # DDPGConfig()'s defaults.
+    cfg = dqn.DQNConfig(num_envs=4096, model="resnet", acting_steps_per_update=2, epsilon_decay_steps=10_000_000, epsilon_end=0.03)
+    state, model, opt = dqn.init_dqn(cfg, 0, dev)
+    _profile_replay("dqn train 4096 envs x 2 steps resnet 64x4 bf16, batch 8192", state,
+                    dqn.make_dqn_step(cfg, model, state.target_model, opt), out)
+    del state, model, opt
+    dcfg = ddpg.DDPGConfig()
+    state = ddpg.init_ddpg(dcfg, 0, dev)[0]
+    _profile_replay("ddpg train 2048 envs, batch 4096", state, ddpg.make_ddpg_step(dcfg, state), out)
 
 
 if __name__ == "__main__":

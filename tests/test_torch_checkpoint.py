@@ -315,8 +315,9 @@ class TestTrainEvalCommands:
         fresh = nets.make_model("cnn", generator=torch.Generator().manual_seed(0))
         assert json.loads(out.strip().splitlines()[-1]) == evaluate.evaluate_policy(fresh, num_envs=4, num_steps=8, device="cpu")
 
-    @pytest.mark.parametrize("argv", [["train", "--algo", "dqn"], ["train", "--algo", "ddpg"], ["train", "--algo", "ppo", "--mesh"],
-                                      ["eval", "--algo", "dqn"]])
+    # Multi-device training is the one part of the CLI not yet ported.
+    @pytest.mark.parametrize("argv", [["train", "--algo", "dqn", "--mesh"], ["train", "--algo", "ddpg", "--mesh"],
+                                      ["train", "--algo", "ppo", "--mesh"], ["train", "--algo", "a3c", "--mesh"]])
     def test_unported_commands_say_so(self, argv):
         with pytest.raises(SystemExit, match="not yet ported"):
             cli.main(argv + ["--device", "cpu"])

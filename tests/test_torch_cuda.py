@@ -1,6 +1,7 @@
 # Copyright 2026 The rein48-tpu Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Card-only tests of the port's CUDA kernels against their plain versions.
+"""Card-only tests of the port's CUDA kernels against their plain versions,
+and of the device paths that must agree with the CPU's.
 
 They skip without a CUDA device. This file imports no JAX, so that it runs
 where the card is and JAX is not; there, from the repository root:
@@ -17,11 +18,12 @@ import dataclasses
 import pytest
 import torch
 
+from rein48_tpu_torch import Game, native
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
 from rein48_tpu_torch.ops import hbm_tables, tables
 from rein48_tpu_torch.ops import ntuple_value as value_ops
-from rein48_tpu_torch.train import a3c, afterstate, common, ppo
+from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
 pytestmark = pytest.mark.cuda
@@ -548,3 +550,42 @@ def test_learner_draws_resume_across_devices(cuda, tmp_path):
     got = [ppo.make_ppo_step(SMALL_PPO, s.model, s.optimizer, s.after_model).permutations(s, s.env.boards.device).cpu()
            for s in (ppo_state, ppo_cpu)]
     assert torch.equal(*got)
+
+
+def test_dqn_first_acting_step_on_card_matches_cpu(cuda):
+    """At epsilon 1 every action is the Gumbel draw over the legal moves,
+    the same words on both devices: the buffer's slots agree bit for bit
+    but the log2 reward, which each device rounds to within one ulp."""
+    cfg = dqn.DQNConfig(
+        num_envs=16, model="qnet", model_kwargs=(("channels", (4, 8)), ("hidden", 16), ("dtype", torch.float32)),
+        replay_capacity=64, learn_batch_size=16, epsilon_start=1.0, min_replay_before_learn=16,
+    )
+    reps = []
+    for device in (cuda, "cpu"):
+        state, model, opt = dqn.init_dqn(cfg, 3, device=device)
+        env, rep, _, _ = dqn.make_dqn_step(cfg, model, state.target_model, opt).act(state)
+        reps.append(rep)
+    got, want = reps
+    assert (got.cursor, got.size) == (want.cursor, want.size) == (16, 16)
+    for k in ("board", "action", "next_board", "done"):
+        assert torch.equal(got.data[k].cpu(), want.data[k]), k
+    torch.testing.assert_close(got.data["reward"].cpu(), want.data["reward"], rtol=2**-23, atol=0)
+
+
+def test_game_on_card_matches_cpu(cuda):
+    a, b = Game(seed=11, device=cuda), Game(seed=11, device="cpu")
+    assert a.device.type == "cuda" and (a.state_matrix == b.state_matrix).all()
+    for i in range(200):
+        legal = b.legal_actions
+        action = int(legal.nonzero()[0][0]) if legal.any() else i % 4
+        sa, ra, da = a.step(action)
+        sb, rb, db = b.step(action)
+        assert (sa == sb).all() and ra == rb and da == db, i
+        if da:
+            assert (a.reset() == b.reset()).all()
+
+
+def test_native_oracle_builds_and_plays_a_game(cuda):
+    assert native.available(), "no C compiler built the oracle"
+    game = native.NativeOracleGame(5)
+    assert 0 < game.play_random() < 1 << 30 and game.spawn_count > 1

@@ -546,7 +546,7 @@ class TestNtupleCli:
 
     def test_unported_train_flags_say_so(self):
         base = ["train", "--algo", "ntuple", "--device", "cpu", "--updates", "1"]
-        for argv in (base + ["--mesh"], ["train", "--algo", "dqn"], ["train", "--algo", "ddpg"]):
+        for argv in (base + ["--mesh"], ["train", "--algo", "dqn", "--mesh"], ["train", "--algo", "ddpg", "--mesh"]):
             with pytest.raises(SystemExit, match="not yet ported"):
                 cli.main(argv)
         with pytest.raises(SystemExit, match="needs --checkpoint-dir"):
