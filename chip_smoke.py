@@ -31,8 +31,15 @@ afterstate critic); then the single-game surface (``Game`` on the card,
 flagship (ResNet 64x4 bf16, a 2**20-slot buffer on the card) through
 ``train_dqn`` with its learn gate, checkpoint (resumed bit for bit), bf16
 against float32 and ``eval --algo dqn``, 5-step DQN, the ``dqn-4k``
-preset, ``train_ddpg``, and ``train --algo dqn|ddpg``; checks what comes
-out, and prints one line per phase. Each path runs
+preset, ``train_ddpg``, and ``train --algo dqn|ddpg``; then multi-process
+training (``parallel/``): a flagship afterstate update of a one-rank NCCL
+group bit for bit against the same update without one, two gloo ranks
+sharing the card for the rollout kernel on half the bench batch each, the
+flagship afterstate trainer, the ``SJ_2X4`` n-tuple trainers on the table
+kernels, PPO with the critic, A3C, the DQN flagship's learn gate and the
+A3C MLP over tensor parallelism, each against one process, and ``train
+--mesh`` under ``torchrun``; checks what comes out, and prints one line per
+phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -82,7 +89,7 @@ Q_BF16_TOL = 0.04
 # it (examples/bench_mxu_trainer_tpu.py:54-60): SJ_2X4 (2 tables of 65,536
 # entries, 8 lookups each), B=1024, 128 steps per update.
 NT_B, NT_T = 1024, 128
-NT_UPDATES = {"step": 12, "delayed": 6}  # step mode's tables are then played
+NT_UPDATES = {"step": 10, "delayed": 5}  # step mode's tables are then played
 NT_EVAL_ENVS, NT_EVAL_STEPS = 512, 600
 NT_D1_ENVS, NT_D1_STEPS = 256, 48
 # The "cached" trainer at the flagship's width and the JAX package's cached
@@ -115,10 +122,10 @@ AS_UPDATES = 6
 # 2**-4 steps in bf16; on the CPU, bf16 against float32 moved the loss by
 # 0.21% and the gradient norm by 0.10% three updates into a run (2,048
 # boards of a B=256 rollout). 2% leaves 10x. The CPU side takes the first
-# AS_BF16_BOARDS boards of the minibatch: a float32 backward of all 65,536
-# would take minutes there.
+# AS_BF16_BOARDS boards of the minibatch, the size of that CPU reading: a
+# float32 backward of all 65,536 would take minutes there.
 LOSS_BF16_RTOL = 0.02
-AS_BF16_BOARDS = 4096
+AS_BF16_BOARDS = 2048
 # eval --algo search --checkpoint-dir: (depth, envs, steps, chance_chunk).
 AS_EVAL = ((0, 1024, 300, None), (1, 256, 100, 4))
 # The PPO flagship (examples/train_ppo_flagship_tpu.py:42-52): B=8192, T=32,
@@ -1955,6 +1962,449 @@ def replay_cli_phase():
         if final["update"] != 3 or final["replay_size"] != 3 * 1024 or not all(np.isfinite(v) for v in final.values()):
             raise AssertionError(f"train --algo {algo} failed: {final}")
 
+# Multi-process training (``parallel/``). The card machine has one card, so
+# the ranks of these phases share it over gloo (CUDA tensors; NCCL runs one
+# rank): they check the sharded path, and two processes time-slice one card,
+# so no time here is a scaling figure. The rollout at the bench shape; the
+# flagship afterstate trainer at full width (B=8192 global, T=32, ResNet 64x4
+# bf16, 2 epochs x 4 minibatches), 2 updates; the SJ_2X4 "mxu" trainer at
+# B=1024 global, T=128, step and delayed/4, and "cached" delayed/4 at 128
+# prefix rows of SJ_2X4's 512, 2 updates each; PPO with the critic, A3C and
+# the DQN flagship's learn gate at 1,024 envs in float32, 1-2 updates; the
+# A3C MLP over dp=1 x tp=2; the CLI under torchrun.
+PAR_RANKS = 2
+PAR_AS_UPDATES, PAR_NT_UPDATES = 2, 2
+PAR_FAMILY_ENVS = 1024
+PAR_TIMEOUT_S = 420
+# Every decision of a board on which both runs agree up to then; a near-tie
+# of bf16 values may fall the other way at a rank's batch size.
+PAR_DECISIONS_MIN = 0.95
+
+
+def _par_nt_configs():
+    from rein48_tpu_torch.agents import ntuple as ntuple_lib
+    from rein48_tpu_torch.train import ntuple as nt
+
+    base = dict(batch_size=NT_B, steps_per_update=NT_T, tuples=ntuple_lib.SJ_2X4)
+    return {
+        "mxu/step": nt.NTupleTrainConfig(table_backend="mxu", update_mode="step", **base),
+        "mxu/delayed": nt.NTupleTrainConfig(table_backend="mxu", update_mode="delayed", delay_window=4, **base),
+        "cached/delayed": nt.NTupleTrainConfig(
+            table_backend="cached", update_mode="delayed", delay_window=4, cache_prefix_rows=128, **base
+        ),
+    }
+
+
+def _par_family_configs():
+    from rein48_tpu_torch.train import a3c, ppo
+
+    f32 = (("dtype", torch.float32),)
+    return {
+        "ppo+critic": dataclasses.replace(
+            ppo_config(critic=True), batch_size=PAR_FAMILY_ENVS, model_kwargs=f32, after_model_kwargs=f32
+        ),
+        "a3c": dataclasses.replace(a3c_config(), batch_size=PAR_FAMILY_ENVS, model_kwargs=f32),
+        "dqn": dataclasses.replace(
+            dqn_flagship_config(), num_envs=PAR_FAMILY_ENVS, model_kwargs=f32, min_replay_before_learn=4 * PAR_FAMILY_ENVS
+        ),
+        "a3c-mlp/tp": a3c.A3CConfig(batch_size=PAR_FAMILY_ENVS, unroll_len=8, model="mlp"),
+    }
+
+
+def _host(t):
+    return t.detach().cpu().clone()
+
+
+def _full_params(model, mesh) -> dict:
+    from rein48_tpu_torch.parallel import mesh as mesh_lib
+
+    sd = model.state_dict() if mesh is None else mesh_lib.full_state_dict(model, mesh)
+    return {k: _host(v) for k, v in sd.items()}
+
+
+def par_rollout(mesh, dev) -> dict:
+    """The rollout kernel on this rank's slice of B=65536, T=2048 (its env
+    ids keyed into the global streams), its time, and the stats summed over
+    the ranks."""
+    from rein48_tpu_torch.engine import fused, vector
+    from rein48_tpu_torch.parallel import mesh as mesh_lib
+    from rein48_tpu_torch.parallel import spmd
+
+    state = vector.reset_batch(SEED + 5, BENCH_B, dev)
+    lo = 0
+    if mesh is not None:
+        lo = mesh_lib.batch_slice(mesh, BENCH_B).start
+        state = mesh_lib.shard_env_state(state, mesh)
+    before = fused.launches
+    final, stats = fused.rollout_random_fused(state, SEED + 6, BENCH_T, env_base=lo)
+    ms = cuda_ms(lambda: fused.rollout_random_fused(state, SEED + 6, BENCH_T, env_base=lo), reps=3)
+    fields = [f.name for f in dataclasses.fields(stats)]
+    sums = torch.stack([getattr(stats, f).to(torch.int64).sum() for f in fields if f != "max_exponent"]
+                       + [getattr(stats, "max_exponent").to(torch.int64).max()])
+    if mesh is not None:
+        table = spmd.all_gather(sums, mesh.dp_group)
+        sums = torch.cat([table[:, :-1].sum(0), table[:, -1:].amax(0)])
+    return {"boards": _host(final.boards), "stats": _host(sums), "ms": ms, "launches": fused.launches - before}
+
+
+def par_afterstate(mesh, dev) -> dict:
+    """``train_afterstate_td`` at the flagship, 2 updates: the first
+    rollout's decisions, the records, the parameters, the last update's ms,
+    the gradient all-reduce's ms per update and the peak memory."""
+    from rein48_tpu_torch.parallel import spmd
+    from rein48_tpu_torch.train import afterstate
+
+    cfg = afterstate_config()
+    first = []
+    rollout = afterstate.AfterstateTDStep.rollout
+    reduce_s = [0.0]
+    psum = spmd.psum_grads
+
+    def recording_rollout(self, state, **kw):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        env, batch, metrics = rollout(self, state, **kw)
+        if not first:
+            first.append(_host(batch["after_boards"]))
+        return env, batch, metrics
+
+    def timed_psum(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = psum(*args)
+        torch.cuda.synchronize()
+        reduce_s[0] += time.perf_counter() - t0
+        return out
+
+    starts = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    afterstate.AfterstateTDStep.rollout, spmd.psum_grads = recording_rollout, timed_psum
+    try:
+        state, history = afterstate.train_afterstate_td(cfg, PAR_AS_UPDATES, seed=SEED, mesh=mesh, log_every=1, device=dev)
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        afterstate.AfterstateTDStep.rollout, spmd.psum_grads = rollout, psum
+    return {
+        "decisions": first[0], "history": [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in history],
+        "params": _full_params(state.model, mesh), "ms_per_update": 1e3 * (end - starts[-1]),
+        "allreduce_ms_per_update": 1e3 * reduce_s[0] / PAR_AS_UPDATES,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+    }
+
+
+def par_ntuple(mesh, dev) -> dict:
+    """``train_ntuple`` in each configuration of ``_par_nt_configs``: the
+    tables (in logical order) after its first window alone, whose decisions
+    all come from the initial tables, and after 2 updates, with the kernels'
+    launches per update."""
+    from rein48_tpu_torch.train import ntuple as nt
+
+    def tables(state, cfg):
+        t = logical_tables(state.params) if cfg.table_backend == "cached" else state.params
+        return {k: _host(v) for k, v in t.items() if v.dtype == torch.float32}
+
+    out = {}
+    for name, cfg in _par_nt_configs().items():
+        first = dataclasses.replace(cfg, steps_per_update=cfg.delay_window if cfg.update_mode == "delayed" else 1)
+        first_state, _ = nt.train_ntuple(first, 1, seed=SEED, mesh=mesh, device=dev)
+        zero_table_counts()
+        state, history = nt.train_ntuple(cfg, PAR_NT_UPDATES, seed=SEED, mesh=mesh, log_every=1, device=dev)
+        out[name] = {
+            "first_window": tables(first_state, cfg), "tables": tables(state, cfg),
+            "history": [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in history],
+            "launches_per_update": {k: v / PAR_NT_UPDATES for k, v in table_counts().items() if v},
+            "boards": _host(state.env.boards),
+        }
+    return out
+
+
+def par_families(mesh, dev) -> dict:
+    """PPO with the critic and A3C (1 update each), the DQN flagship's learn
+    gate (2 updates: cold, then learning), and the A3C MLP over tp (2
+    updates; ``mesh`` a dp=1 x tp=2 mesh there)."""
+    from rein48_tpu_torch.parallel import mesh as mesh_lib
+    from rein48_tpu_torch.train import a3c, dqn, ppo
+
+    out = {}
+    for name, cfg in _par_family_configs().items():
+        m = mesh
+        if name.endswith("/tp") and mesh is not None:
+            m = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=PAR_RANKS))
+        if name == "dqn":
+            state, history = dqn.train_dqn(cfg, 2, seed=SEED, mesh=m, log_every=1, device=dev)
+            extra = {"optimizer_count": state.optimizer.count}
+        elif name.startswith("ppo"):
+            state, history = ppo.train_ppo(cfg, 1, seed=SEED, mesh=m, log_every=1, device=dev)
+            extra = {"after_params": _full_params(state.after_model, m)}
+        else:
+            state, history = a3c.train_a3c(cfg, 2 if name.endswith("/tp") else 1, seed=SEED, mesh=m, log_every=1, device=dev)
+            extra = {}
+        out[name] = {
+            "history": [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in history],
+            "params": _full_params(state.model, m), "boards": _host(state.env.boards), **extra,
+        }
+    return out
+
+
+PAR_PHASES = ("rollout", "afterstate", "ntuple", "families")
+
+
+def _par_rank(rank: int, store: str, out: str) -> None:
+    """One rank of the gloo group on the card: every parallel phase, its
+    results saved for the parent; a failure is written beside them."""
+    from rein48_tpu_torch.parallel import multihost
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        multihost.initialize(f"file://{store}", PAR_RANKS, rank, backend="gloo", device=dev)
+        mesh = multihost.global_mesh()
+        phases = {"rollout": par_rollout, "afterstate": par_afterstate, "ntuple": par_ntuple, "families": par_families}
+        results = {}
+        for name in PAR_PHASES:
+            t0 = time.perf_counter()
+            results[name] = phases[name](mesh, dev)
+            results[f"{name}_s"] = time.perf_counter() - t0
+        torch.save(results, Path(out) / f"rank{rank}.pt")
+    except BaseException:
+        import traceback
+
+        (Path(out) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        multihost.shutdown()
+
+
+def parallel_nccl_phase(dev) -> None:
+    """``[parallel/nccl]``: one flagship afterstate update through
+    ``train_afterstate_td(mesh=...)`` of a one-rank NCCL group against the
+    same update without a mesh, deterministic cuDNN for the pair: equal bit
+    for bit (one rank divides by one)."""
+    import torch.distributed as dist
+
+    from rein48_tpu_torch.parallel import multihost
+    from rein48_tpu_torch.train import afterstate
+
+    cfg = afterstate_config()
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for joined in (False, True):
+            mesh = None
+            if joined:
+                multihost.initialize(num_processes=1, process_id=0, backend="nccl", device=dev)
+                mesh = multihost.global_mesh()
+                backend = dist.get_backend()
+            try:
+                t0 = time.perf_counter()
+                state, history = afterstate.train_afterstate_td(cfg, 1, seed=SEED, mesh=mesh, log_every=1, device=dev)
+                runs.append((state, history, time.perf_counter() - t0))
+            finally:
+                if joined:
+                    multihost.shutdown()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (a, ha, _), (b, hb, wall) = runs
+    equal = {
+        "params": all(torch.equal(x, y) for x, y in zip(a.model.state_dict().values(), b.model.state_dict().values())),
+        "adam": all(
+            torch.equal(x, y) for m in a.optimizer.moments for x, y in zip(a.optimizer.moments[m], b.optimizer.moments[m])
+        ),
+        "boards": bool(torch.equal(a.env.boards, b.env.boards)),
+        "records": [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in ha]
+        == [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in hb],
+    }
+    log("parallel/nccl", backend=backend, world=1, B=cfg.batch_size, T=cfg.unroll_len, update_s=round(wall, 3),
+        loss=hb[0]["loss"], equal=json.dumps(equal))
+    if not all(equal.values()):
+        raise AssertionError(f"a one-rank NCCL update differs from the update without a mesh: {equal}")
+
+
+def _params_within(got: dict, want: dict, bound: float) -> float:
+    err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    if not err <= bound:
+        raise AssertionError(f"parameters differ by {err} > {bound}")
+    return err
+
+
+def _same_across_ranks(results, path) -> bool:
+    def get(r):
+        for k in path:
+            r = r[k]
+        return r
+
+    a = get(results[0])
+    for other in results[1:]:
+        b = get(other)
+        if isinstance(a, dict):
+            if any(not torch.equal(a[k], b[k]) for k in a):
+                return False
+        elif a != b:
+            return False
+    return True
+
+
+def parallel_phases(dev) -> None:
+    """``[parallel/rollout|afterstate|ntuple|families|tp]``: two gloo ranks
+    on the card (spawned; the kernels are built already), each phase held
+    against the same run in this process without a mesh; then
+    ``[parallel/cli]``."""
+    import torch.multiprocessing as mp
+
+    phases = {"rollout": par_rollout, "afterstate": par_afterstate, "ntuple": par_ntuple, "families": par_families}
+    t0 = time.perf_counter()
+    ref = {name: phases[name](None, dev) for name in PAR_PHASES}
+    # A second one-process n-tuple run: the card's own spread from run to run.
+    ref_again = par_ntuple(None, dev)
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_par_rank, args=(r, str(Path(out) / "store"), out)) for r in range(PAR_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(PAR_TIMEOUT_S)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [f.read_text() for f in sorted(Path(out).glob("rank*.err"))]
+        if errors or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"a rank failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+        ranks = [torch.load(Path(out) / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+        ranks_s = time.perf_counter() - t0
+    log("parallel/spawn", ranks=PAR_RANKS, backend="gloo", one_process_s=round(ref_s, 1), ranks_s=round(ranks_s, 1),
+        rank_phase_s=json.dumps({k: round(ranks[0][f"{k}_s"], 1) for k in PAR_PHASES}))
+
+    # The rollout: boards and summed stats bit for bit.
+    got = [r["rollout"] for r in ranks]
+    boards_equal = bool(torch.equal(torch.cat([g["boards"] for g in got]), ref["rollout"]["boards"]))
+    stats_equal = all(torch.equal(g["stats"], ref["rollout"]["stats"]) for g in got)
+    log("parallel/rollout", B=BENCH_B, T=BENCH_T, ms_per_rank=[round(g["ms"], 4) for g in got],
+        one_process_ms=round(ref["rollout"]["ms"], 4), launches_per_rank=[g["launches"] for g in got],
+        boards_equal=boards_equal, stats_equal=stats_equal, stats=ref["rollout"]["stats"].tolist())
+    if not (boards_equal and stats_equal):
+        raise AssertionError("the sharded rollout differs from the one-process kernel's")
+
+    # The flagship afterstate trainer at full width.
+    got, want = [r["afterstate"] for r in ranks], ref["afterstate"]
+    decisions = torch.cat([g["decisions"] for g in got], dim=1)
+    same = (decisions == want["decisions"]).flatten(2).all(-1)  # [T, B]
+    share, share_first = float(same.float().mean()), float(same[0].float().mean())
+    loss_err = abs(got[0]["history"][0]["loss"] - want["history"][0]["loss"]) / abs(want["history"][0]["loss"])
+    steps = PAR_AS_UPDATES * afterstate_config().num_epochs * afterstate_config().num_minibatches
+    bound = 2 * afterstate_config().learning_rate * steps
+    param_err = _params_within(got[0]["params"], want["params"], bound)
+    replicated = _same_across_ranks(ranks, ("afterstate", "params")) and _same_across_ranks(ranks, ("afterstate", "history"))
+    log("parallel/afterstate", B=8192, T=32, model="resnet 64x4 bf16", updates=PAR_AS_UPDATES,
+        equal_decisions=round(share, 6), equal_decisions_first_step=round(share_first, 6),
+        loss=[h["loss"] for h in got[0]["history"]], one_process_loss=[h["loss"] for h in want["history"]],
+        loss_rel_err_first=f"{loss_err:.3g}", max_param_err=f"{param_err:.3g}", param_bound=bound,
+        ms_per_update_per_rank=[round(g["ms_per_update"], 1) for g in got],
+        one_process_ms_per_update=round(want["ms_per_update"], 1),
+        allreduce_ms_per_update_per_rank=[round(g["allreduce_ms_per_update"], 2) for g in got],
+        peak_gib_per_rank=[round(g["peak_gib"], 3) for g in got], one_process_peak_gib=round(want["peak_gib"], 3),
+        replicated_equal=replicated)
+    if share_first < PAR_DECISIONS_MIN or loss_err > 1e-3 or not replicated:
+        raise AssertionError("the sharded afterstate trainer differs from the one-process run")
+
+    # The n-tuple trainers. After the first window, whose decisions all come
+    # from the initial tables: within 1e-6 + 1e-5 x S of one process, S each
+    # table's largest magnitude (the kernels' atomics reassociate the sums).
+    # After 2 updates the ranks' replicas are the same bits; against one
+    # process they are reported beside two one-process runs of the card,
+    # which part as soon as a reassociated sum turns a tie of mirror-image
+    # afterstates the other way.
+    def within(got, want):
+        return close_tables([got[k] for k in want], [want[k] for k in want], [float(want[k].abs().max()) for k in want])
+
+    for name in _par_nt_configs():
+        got, want = [r["ntuple"][name] for r in ranks], ref["ntuple"][name]
+        ok, err, ratio = within(got[0]["first_window"], want["first_window"])
+        _, err2, ratio2 = within(got[0]["tables"], want["tables"])
+        _, spread, spread_ratio = within(ref_again[name]["tables"], want["tables"])
+        boards = torch.cat([g["boards"] for g in got])
+        boards_equal = float((boards == want["boards"]).flatten(1).all(1).float().mean())
+        replicated = _same_across_ranks([r["ntuple"] for r in ranks], (name, "tables")) and \
+            _same_across_ranks([r["ntuple"] for r in ranks], (name, "first_window"))
+        log(f"parallel/ntuple/{name}", B=NT_B, T=NT_T, updates=PAR_NT_UPDATES, first_window_within_tol=ok,
+            first_window_max_abs_err=f"{err:.3g}", first_window_err_over_tol=f"{ratio:.3g}",
+            two_updates_err_over_tol=f"{ratio2:.3g}", one_process_twice_err_over_tol=f"{spread_ratio:.3g}",
+            share_of_equal_boards=round(boards_equal, 4), replicated_equal=replicated,
+            launches_per_update_per_rank=json.dumps([g["launches_per_update"] for g in got]),
+            one_process_launches_per_update=json.dumps(want["launches_per_update"]))
+        scatter = "cached_scatter" if name.startswith("cached") else "table_scatter"
+        expect = {"ntuple_value": 2 * NT_T}
+        for g in got:
+            if any(g["launches_per_update"].get(k) != v for k, v in expect.items()) or not g["launches_per_update"].get(scatter):
+                raise AssertionError(f"{name}: a rank's launches per update {g['launches_per_update']}")
+        if not (ok and replicated):
+            raise AssertionError(f"{name}: the first window differs from one process's, or the ranks' replicas part")
+
+    # The other families and tp, float32: losses at rtol 1e-5; parameters
+    # within Adam's per-entry bound, 2 x lr per optimizer step (a near-zero
+    # gradient's sign may round apart, as tests/test_torch_afterstate.py
+    # bounds it), and within rtol 1e-4 over the whole set.
+    for name, cfg in _par_family_configs().items():
+        got, want = [r["families"][name] for r in ranks], ref["families"][name]
+        loss_err = max(abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(got[0]["history"], want["history"]))
+        keys = [k for k in ("params", "after_params") if k in want]
+        err = max(float((got[0][k][p] - want[k][p]).abs().max()) for k in keys for p in want[k])
+        steps = len(want["history"]) * (cfg.num_epochs * cfg.num_minibatches if name.startswith("ppo") else 1)
+        bound = 2 * cfg.learning_rate * steps
+        diff = torch.cat([(got[0][k][p] - want[k][p]).reshape(-1) for k in keys for p in want[k]])
+        norm = torch.cat([want[k][p].reshape(-1) for k in keys for p in want[k]])
+        set_rel = float(diff.norm() / norm.norm())
+        replicated = all(_same_across_ranks([r["families"] for r in ranks], (name, k)) for k in keys)
+        boards_equal = bool(torch.equal(torch.cat([g["boards"] for g in got]), want["boards"])) if not name.endswith("/tp") \
+            else bool(torch.equal(got[0]["boards"], want["boards"]))
+        fields = dict(envs=PAR_FAMILY_ENVS, updates=len(want["history"]), loss=[h["loss"] for h in got[0]["history"]],
+                      loss_rel_err=f"{loss_err:.3g}", max_param_err=f"{err:.3g}", adam_bound=bound,
+                      params_rel_err=f"{set_rel:.3g}", boards_equal=boards_equal, replicated_equal=replicated)
+        if name == "dqn":
+            fields["optimizer_count_per_rank"] = [g["optimizer_count"] for g in got]
+        log("parallel/tp" if name.endswith("/tp") else f"parallel/families/{name}", **fields)
+        if loss_err > 1e-5 or err > bound or set_rel > 1e-4 or not replicated or not boards_equal:
+            raise AssertionError(f"{name}: the sharded run differs from the one-process run")
+        if name == "dqn" and [g["optimizer_count"] for g in got] + [want["optimizer_count"]] != [1] * (PAR_RANKS + 1):
+            raise AssertionError("dqn: the learn gate did not open at update 2 alone")
+    parallel_cli_phase()
+
+
+def parallel_cli_phase() -> None:
+    """``[parallel/cli]``: ``train --algo ntuple --mesh`` under torchrun with
+    two ranks (gloo: they share the card): equal records, and only rank 0
+    writes the log and the checkpoint."""
+    import csv
+    import os
+
+    argv = ["train", "--algo", "ntuple", "--mesh", "--updates", "2", "--batch-size", "1024", "--unroll", "64",
+            "--log-every", "1", "--checkpoint-every", "2"]
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(PAR_RANKS),
+             "-m", "rein48_tpu_torch", *argv, "--checkpoint-dir", f"{tmp}/ck", "--log-dir", f"{tmp}/log"],
+            capture_output=True, text=True, timeout=PAR_TIMEOUT_S, env=env, cwd=tmp,
+        )
+        wall = time.perf_counter() - t0
+        finals = [ast.literal_eval(ln[len("final: "):]) for ln in proc.stderr.splitlines() if ln.startswith("final: ")]
+        for f in finals:
+            f.pop("steps_per_sec", None)
+        rows = list(csv.DictReader(open(f"{tmp}/log/metrics.csv"))) if os.path.exists(f"{tmp}/log/metrics.csv") else []
+        saved = sorted(os.listdir(f"{tmp}/ck")) if os.path.exists(f"{tmp}/ck") else []
+        meshes = [ln for ln in proc.stderr.splitlines() if ln.startswith("mesh: ")]
+    log("parallel/cli", argv=" ".join(argv), rc=proc.returncode, wall_s=round(wall, 1), meshes=json.dumps(meshes),
+        records_equal=len(finals) == PAR_RANKS and all(f == finals[0] for f in finals), log_rows=len(rows), checkpoint=saved)
+    if proc.returncode or len(finals) != PAR_RANKS or any(f != finals[0] for f in finals) or len(rows) != 2 \
+            or saved != ["2", "train_config.json"]:
+        raise AssertionError(f"train --mesh under torchrun failed: {proc.stderr[-3000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2041,7 +2491,7 @@ def main() -> int:
 
         run(4)  # untimed warm-up at the same shapes: cuDNN loads and picks its algorithms
         walls = []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             stats = run(steps)
             walls.append(time.perf_counter() - t0)
@@ -2230,6 +2680,14 @@ def main() -> int:
     ddpg_phase(dev)
     replay_cli_phase()
     lap("DQN, DDPG, their checkpoint, eval and CLI")
+    torch.cuda.empty_cache()
+    # 36-42. Multi-process training: a one-rank NCCL group, then two gloo
+    # ranks sharing the card (the rollout kernel, the flagship afterstate
+    # trainer, the n-tuple trainers with their kernels, PPO, A3C, DQN, tp),
+    # each against one process, and train --mesh under torchrun.
+    parallel_nccl_phase(dev)
+    parallel_phases(dev)
+    lap("parallel: NCCL, gloo ranks, torchrun")
     # Last, after every other reading: a profiled update leaves the profiler
     # with 80 k launches, which has shifted later readings.
     value_launches = value_launches_phase(sj_trained, dev)

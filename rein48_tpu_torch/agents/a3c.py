@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from rein48_tpu_torch.parallel import spmd
+
 
 class A3CLossConfig(NamedTuple):
     """Loss hyperparameters (defaults = the reference's values).
@@ -78,9 +80,15 @@ def sample_actions(gumbel: torch.Tensor, logits: torch.Tensor, legal_mask: torch
     return (logits + gumbel).argmax(-1)
 
 
-def normalize(adv: torch.Tensor) -> torch.Tensor:
-    """``(adv - mean) / (std + 1e-6)`` with the population std, as ``jnp.std``."""
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-6)
+def normalize(adv: torch.Tensor, group=None) -> torch.Tensor:
+    """``(adv - mean) / (std + 1e-6)`` with the population std, as ``jnp.std``.
+
+    With a process ``group`` (the data-parallel ranks, ``parallel/``) the
+    mean and std are those of every rank's ``adv`` together: the global
+    batch's, as JAX's sharded ``jnp.std`` takes them.
+    """
+    mean, std = spmd.global_mean_std(adv, group)
+    return (adv - mean) / (std + 1e-6)
 
 
 def a3c_loss(
@@ -89,6 +97,7 @@ def a3c_loss(
     actions: torch.Tensor,
     targets: torch.Tensor,
     config: A3CLossConfig = A3CLossConfig(),
+    group=None,
 ):
     """Joint actor+critic loss over a rollout batch.
 
@@ -97,14 +106,16 @@ def a3c_loss(
     term. ``logits`` ``[..., 4]`` (masked as when sampling), ``values``,
     ``actions`` and ``targets`` of the leading shape. Returns ``(loss,
     aux)`` with ``loss``, ``actor_loss``, ``critic_loss``, ``entropy``
-    and ``td_abs``.
+    and ``td_abs``. ``group``: normalize the advantages over the global
+    batch of the data-parallel ranks (:func:`normalize`); the means stay the
+    rank's own, which the gradient all-reduce averages.
     """
     targets = targets.detach()
     td = targets - values
     critic_loss = torch.mean(torch.square(td))
     adv = td.detach()
     if config.normalize_advantage:
-        adv = normalize(adv)
+        adv = normalize(adv, group)
     logp = torch.log_softmax(logits, -1)
     p = torch.softmax(logits, -1)
     logp_a = logp.gather(-1, actions[..., None].long())[..., 0]

@@ -77,6 +77,7 @@ def dqn_loss(
     rewards: torch.Tensor,
     dones: torch.Tensor,
     config: DQNLossConfig = DQNLossConfig(),
+    count: int | None = None,
 ):
     """TD loss over a sampled batch.
 
@@ -85,15 +86,22 @@ def dqn_loss(
     the loss is the mean Huber of ``target - Q_online(s, a)`` with no
     gradient through the target. ``q_*`` are float ``[B, 4]``; the
     transition fields ``[B]``. Returns ``(loss, aux)`` with ``loss``,
-    ``td_abs``, ``q_mean`` and ``target_mean``.
+    ``td_abs``, ``q_mean`` and ``target_mean``. With ``count`` each is the
+    sum over the batch divided by ``count``: a data-parallel rank's share of
+    the means over a global batch of ``count`` samples, whose sum over the
+    ranks is the global mean.
     """
     q_a = q_online.gather(-1, actions[..., None].long())[..., 0]
     next_a = (q_online_next if config.double_dqn else q_target_next).argmax(-1)
     q_next = q_target_next.gather(-1, next_a[..., None])[..., 0]
     target = rewards + config.gamma * (1.0 - dones.to(torch.float32)) * q_next
     td = target.detach() - q_a
-    loss = huber(td, config.huber_delta).mean()
-    aux = {"loss": loss, "td_abs": td.abs().mean(), "q_mean": q_a.mean(), "target_mean": target.mean()}
+
+    def mean(x):
+        return x.mean() if count is None else x.sum() / count
+
+    loss = mean(huber(td, config.huber_delta))
+    aux = {"loss": loss, "td_abs": mean(td.abs()), "q_mean": mean(q_a), "target_mean": mean(target)}
     return loss, aux
 
 

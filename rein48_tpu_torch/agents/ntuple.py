@@ -213,8 +213,9 @@ class NTupleNetwork:
             out.append((digits * weights).sum(-1, dtype=torch.int32))
         return tuple(out)
 
-    def _translate(self, params, i: int, ids: torch.Tensor) -> torch.Tensor:
-        """Logical -> physical ids for the plain table ops of ``"cached"``."""
+    def physical_ids(self, params, i: int, ids: torch.Tensor) -> torch.Tensor:
+        """Logical -> physical ids of table ``i`` (the plain table ops of
+        ``"cached"`` take physical ids; other backends' are the same)."""
         if not self._cached:
             return ids
         return hbm_tables.physical_index(params[f"t{i}_rm"], ids)
@@ -314,7 +315,7 @@ class NTupleNetwork:
             raise ValueError(f"unknown collision mode '{collision}'")
         delta = (alpha / self.num_lookups) * err
         for i, idx in enumerate(self.indices(boards)):
-            ids = self._translate(params, i, idx.reshape(-1))
+            ids = self.physical_ids(params, i, idx.reshape(-1))
             d = self._flat_deltas(delta, idx)
             table = params[f"t{i}"]
             if self._mxu:
@@ -364,7 +365,7 @@ class NTupleNetwork:
         """
         scale = alpha / self.num_lookups
         for i, idx in enumerate(self.indices(boards)):
-            ids = self._translate(params, i, idx.reshape(-1))
+            ids = self.physical_ids(params, i, idx.reshape(-1))
             d = self._flat_deltas(err, idx)
             table, e_acc, a_acc = params[f"t{i}"], params[f"t{i}_E"], params[f"t{i}_A"]
             if self._mxu:
@@ -457,7 +458,7 @@ class NTupleNetwork:
         )
         if bool(overflow):
             cached_windows["fallback"] += 1
-            f_es, f_ab, f_h = self._stats(w.shape[0], self._translate(params, i, ids), d)
+            f_es, f_ab, f_h = self._stats(w.shape[0], self.physical_ids(params, i, ids), d)
             gain = 1.0 - torch.pow(1.0 - step_at(slice(None)), f_h)
             w.add_(gain * scale * (f_es / torch.clamp(f_h, min=1.0)))
             if tc:
@@ -476,7 +477,7 @@ class NTupleNetwork:
         # The cold residue, in runs of equal physical ids; each run's update
         # lands on its first element. The others, and the (0, 0.0) slots of
         # unused capacity, have 0 hits and add exactly 0.
-        sp, se, first, seg = self._runs(self._translate(params, i, cold_i), cold_e)
+        sp, se, first, seg = self._runs(self.physical_ids(params, i, cold_i), cold_e)
         m = sp.shape[0]
 
         def run_sum(v):

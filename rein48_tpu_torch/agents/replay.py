@@ -109,19 +109,30 @@ def replay_sample_nstep(
     cap = state.capacity
     if n_step * stride > cap:
         raise ValueError(f"n_step*stride={n_step * stride} exceeds capacity {cap}")
-    base = (state.cursor - state.size + j) % cap
-    offs = torch.arange(n_step, dtype=torch.int64, device=j.device) * stride
-    slots = (base[:, None] + offs[None, :]) % cap  # [B, n]
+    return nstep_from_slots(state.data, nstep_slots(state.cursor, state.size, cap, j, n_step, stride), gamma)
 
-    rewards = state.data["reward"][slots]
-    dones = state.data["done"][slots].to(rewards.dtype)
+
+def nstep_slots(cursor: int, size: int, capacity: int, j: torch.Tensor, n_step: int, stride: int) -> torch.Tensor:
+    """The slots ``[B, n_step]`` of the chains that start at age index ``j``
+    (:func:`replay_sample_nstep`)."""
+    base = (cursor - size + j) % capacity
+    offs = torch.arange(n_step, dtype=torch.int64, device=j.device) * stride
+    return (base[:, None] + offs[None, :]) % capacity
+
+
+def nstep_from_slots(data: Dict[str, torch.Tensor], slots: torch.Tensor, gamma: float) -> Dict[str, torch.Tensor]:
+    """The chains at ``slots`` (``[B, n_step]``, rows of ``data``) in 1-step
+    form (:func:`replay_sample_nstep`)."""
+    n_step = slots.shape[1]
+    rewards = data["reward"][slots]
+    dones = data["done"][slots].to(rewards.dtype)
     # cont[k] = prod_{l <= k} (1 - done_l); the reward of step k counts while cont[k - 1] is 1.
     cont = torch.cumprod(1.0 - dones, dim=1)
     cont_before = torch.cat([torch.ones_like(cont[:, :1]), cont[:, :-1]], dim=1)
-    discounts = gamma ** torch.arange(n_step, dtype=rewards.dtype, device=j.device)
+    discounts = gamma ** torch.arange(n_step, dtype=rewards.dtype, device=slots.device)
     reward_n = torch.sum(rewards * cont_before * discounts, dim=1)
-    first = {k: buf[slots[:, 0]] for k, buf in state.data.items()}
-    return {**first, "reward": reward_n, "done": cont[:, -1] < 0.5, "next_board": state.data["next_board"][slots[:, -1]]}
+    first = {k: buf[slots[:, 0]] for k, buf in data.items()}
+    return {**first, "reward": reward_n, "done": cont[:, -1] < 0.5, "next_board": data["next_board"][slots[:, -1]]}
 
 
 def replay_filled(state: ReplayState) -> bool:

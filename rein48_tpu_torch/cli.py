@@ -15,6 +15,7 @@
     python -m rein48_tpu_torch train --algo dqn --updates 500 --checkpoint-dir ckpt/dqn
     python -m rein48_tpu_torch eval --algo dqn --checkpoint-dir ckpt/dqn
     python -m rein48_tpu_torch train --algo ddpg --updates 500
+    torchrun --nproc_per_node 2 -m rein48_tpu_torch train --algo ntuple --mesh --updates 200
 
 Every subcommand of the JAX CLI is ported: ``play`` (rand or hand
 control; the reference's ``-c`` aliases), ``parity`` (fixed-seed games of
@@ -26,9 +27,13 @@ for ppo, ``--model mlp`` meaning ``qnet`` for dqn) and ``eval --algo
 a3c|ppo|dqn|search|ntuple`` (``--sample`` for a3c, ppo and dqn), where
 ``search`` plays the snake heuristic or, with ``--checkpoint-dir``, a
 trained value net at its leaves: a PPO checkpoint's afterstate critic where
-it has one. ``--mesh`` is not yet ported. The table backend ``torch`` is
-the JAX CLI's ``xla``. Everything runs on ``cuda`` unless ``--device cpu``
-is given.
+it has one. ``train --mesh`` runs data-parallel over every rank of the job
+(``parallel/``): under ``torchrun`` every rank runs the CLI, joins the group
+from torchrun's environment and trains its slice of the batch on its own
+card (NCCL), or on a shared card or the CPU over gloo; without torchrun it
+is a one-rank group. DDPG takes no mesh, as in JAX. The table backend
+``torch`` is the JAX CLI's ``xla``. Everything runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -146,22 +151,50 @@ def _cmd_parity(args: argparse.Namespace) -> int:
     return 0 if ok else 1
 
 
+def _join_mesh(device):
+    """``train --mesh``: join the job's process group (torchrun's, or one
+    rank of its own), build the mesh over all its ranks, and print it."""
+    import torch.distributed as dist
+
+    from rein48_tpu_torch.parallel import multihost
+
+    multihost.initialize(device=device)
+    if not dist.is_initialized():
+        multihost.initialize(num_processes=1, process_id=0, device=device)
+    mesh = multihost.global_mesh()
+    device = multihost.rank_device(device)
+    print(f"mesh: {mesh}, backend {dist.get_backend()}, device {device}", file=sys.stderr)
+    return mesh, device
+
+
 def _cmd_train(args: argparse.Namespace) -> int:
-    if args.mesh:
-        raise SystemExit("train --mesh is not yet ported to rein48_tpu_torch")
+    if args.mesh and args.algo == "ddpg":
+        raise SystemExit("train --algo ddpg takes no --mesh: train_ddpg has none, as in JAX")
+    try:
+        mesh, device = _join_mesh(args.device) if args.mesh else (None, args.device)
+        return _train(args, mesh, device)
+    finally:
+        if args.mesh:
+            from rein48_tpu_torch.parallel import multihost
+
+            multihost.shutdown()
+
+
+def _train(args: argparse.Namespace, mesh, device) -> int:
     from rein48_tpu_torch.utils.checkpoint import Checkpointer
     from rein48_tpu_torch.utils.metrics import MetricLogger
 
     ckpt = Checkpointer(args.checkpoint_dir, save_every=args.checkpoint_every) if args.checkpoint_dir else None
     logger = MetricLogger(log_dir=args.log_dir)
-    run = dict(num_updates=args.updates, seed=args.seed, log_every=args.log_every, logger=logger, checkpointer=ckpt, device=args.device)
+    run = dict(num_updates=args.updates, seed=args.seed, log_every=args.log_every, logger=logger, checkpointer=ckpt, device=device)
+    mesh_run = dict(run, mesh=mesh)
     try:
         if args.algo == "dqn":
             from rein48_tpu_torch.train.dqn import DQNConfig, train_dqn
 
             model = args.model if args.model != "mlp" else "qnet"
             config = DQNConfig(num_envs=args.batch_size, model=model, learning_rate=args.lr)
-            _, history = train_dqn(config, **run)
+            _, history = train_dqn(config, **mesh_run)
         elif args.algo == "ddpg":
             from rein48_tpu_torch.train.ddpg import DDPGConfig, train_ddpg
 
@@ -173,7 +206,7 @@ def _cmd_train(args: argparse.Namespace) -> int:
                 config = A3CConfig.reference_parity(batch_size=args.batch_size)
             else:
                 config = A3CConfig(batch_size=args.batch_size, unroll_len=args.unroll, model=args.model, learning_rate=args.lr)
-            _, history = train_a3c(config, **run)
+            _, history = train_a3c(config, **mesh_run)
         elif args.algo == "ppo":
             from rein48_tpu_torch.train.ppo import PPOConfig, train_ppo
 
@@ -181,14 +214,14 @@ def _cmd_train(args: argparse.Namespace) -> int:
                 batch_size=args.batch_size, unroll_len=args.unroll, model=args.model, learning_rate=args.lr,
                 afterstate_critic=args.afterstate, after_model=args.model,
             )
-            _, history = train_ppo(config, **run)
+            _, history = train_ppo(config, **mesh_run)
         elif args.algo == "afterstate":
             from rein48_tpu_torch.train.afterstate import AfterstateTDConfig, train_afterstate_td
 
             config = AfterstateTDConfig(
                 batch_size=args.batch_size, unroll_len=args.unroll, model=args.model, learning_rate=args.lr
             )
-            _, history = train_afterstate_td(config, **run)
+            _, history = train_afterstate_td(config, **mesh_run)
         else:
             from rein48_tpu_torch.train.ntuple import NTupleTrainConfig, train_ntuple
 
@@ -203,7 +236,7 @@ def _cmd_train(args: argparse.Namespace) -> int:
                 table_backend=args.table_backend,
                 **kwargs,
             )
-            _, history = train_ntuple(config, **run)
+            _, history = train_ntuple(config, **mesh_run)
     finally:
         logger.close()
     if history:
@@ -424,7 +457,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--afterstate", action="store_true", help="ppo only: co-train an afterstate value net (planner leaf)")
-    pt.add_argument("--mesh", action="store_true", help="not yet ported")
+    pt.add_argument(
+        "--mesh", action="store_true",
+        help="data-parallel over every rank of the job (run under torchrun; alone, one rank); not ddpg",
+    )
     pt.add_argument("--parity", action="store_true", help="a3c only: the reference-parity regime")
     pt.add_argument("--log-dir", default=None)
     pt.add_argument("--log-every", type=int, default=10)

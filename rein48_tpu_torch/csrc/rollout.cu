@@ -217,9 +217,12 @@ __global__ void __launch_bounds__(kThreads)
                    const int32_t* __restrict__ steps_in, const uint32_t* __restrict__ bits,
                    uint8_t* __restrict__ boards_out, int32_t* __restrict__ score_out,
                    int32_t* __restrict__ steps_out, int32_t* __restrict__ stats, int64_t n,
-                   int num_steps, uint32_t key0, uint32_t key1) {
+                   int num_steps, uint32_t key0, uint32_t key1, int64_t env_base) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n) return;
+  // The env's stream: its index in the whole batch, of which this launch
+  // may hold a slice from env_base on (one rank's share).
+  const uint64_t env = static_cast<uint64_t>(env_base + e);
 
   EnvRegs s;
   const uint4 raw = reinterpret_cast<const uint4*>(boards_in)[e];
@@ -242,13 +245,13 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     } else {
-      // Words 20q .. 20q+19 of stream (seed, e) are blocks 5q .. 5q+4.
+      // Words 20q .. 20q+19 of stream (seed, env) are blocks 5q .. 5q+4.
       const uint64_t block0 = static_cast<uint64_t>(t0 / kStepsPerGroup) * kWords;
 #pragma unroll
       for (int b = 0; b < kWords; ++b) {
         const uint64_t block = block0 + b;
         uint32_t c[4] = {static_cast<uint32_t>(block), static_cast<uint32_t>(block >> 32),
-                         static_cast<uint32_t>(e), static_cast<uint32_t>(e >> 32)};
+                         static_cast<uint32_t>(env), static_cast<uint32_t>(env >> 32)};
         philox4x32_10(c, key0, key1);
 #pragma unroll
         for (int k = 0; k < 4; ++k) w[4 * b + k] = c[k];
@@ -277,12 +280,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launches the rollout on `stream` and returns cudaGetLastError() as an int.
 // boards: uint8[n, 16]; score, steps: int32[n]; bits: uint32[T, 5, n] or
-// null for Philox mode; stats: int32[4, n] (episodes, length sum, score
-// sum, max exponent).
+// null for Philox mode, where env i draws from stream (seed, env_base + i);
+// stats: int32[4, n] (episodes, length sum, score sum, max exponent).
 extern "C" int rein48_rollout(const void* boards_in, const void* score_in, const void* steps_in,
                               const void* bits, void* boards_out, void* score_out,
                               void* steps_out, void* stats, long long n, int num_steps,
-                              unsigned long long seed, void* stream) {
+                              unsigned long long seed, long long env_base, void* stream) {
   if (n <= 0) return 0;
   const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -298,10 +301,11 @@ extern "C" int rein48_rollout(const void* boards_in, const void* score_in, const
   if (bits != nullptr) {
     rollout_kernel<true><<<blocks, kThreads, 0, s>>>(b_in, sc_in, st_in,
                                                      static_cast<const uint32_t*>(bits), b_out,
-                                                     sc_out, st_out, st, n, num_steps, key0, key1);
+                                                     sc_out, st_out, st, n, num_steps, key0, key1,
+                                                     env_base);
   } else {
     rollout_kernel<false><<<blocks, kThreads, 0, s>>>(b_in, sc_in, st_in, nullptr, b_out, sc_out,
-                                                      st_out, st, n, num_steps, key0, key1);
+                                                      st_out, st, n, num_steps, key0, key1, env_base);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,9 +18,11 @@ launches the kernel or raises. ``launches`` counts kernel launches.
 Semantics are those of the JAX reference's ``fused_step_soa``: a uniform
 action from the ``ACTION`` word, the move, a spawn iff the board changed,
 the game-over test, an in-place reset, and per-env episode statistics.
-The env index of the Philox stream is the env's position in the batch;
-``state.seed/env_id/counter`` are left untouched, as the JAX kernel leaves
-``state.key``.
+The env index of the Philox stream is the env's position in the batch,
+counted from ``env_base``: a data-parallel rank that holds envs ``lo..hi``
+of the global batch passes ``env_base=lo`` and rolls them on their own
+streams. ``state.seed/env_id/counter`` are left untouched, as the JAX
+kernel leaves ``state.key``.
 """
 
 from __future__ import annotations
@@ -198,16 +200,16 @@ def rollout_bits_reference(state: EnvState, bits: torch.Tensor):
     return _rollout_plain(state, [bits.to(torch.int64)])
 
 
-def rollout_random_reference(state: EnvState, seed: int, num_steps: int):
+def rollout_random_reference(state: EnvState, seed: int, num_steps: int, env_base: int = 0):
     """Plain version of the kernel's Philox mode.
 
-    Equal to ``rollout_bits_reference(state, philox_bits(seed, T, B))``,
-    drawing the words a chunk of steps at a time.
+    Equal to ``rollout_bits_reference(state, philox_bits(seed, T, B,
+    first_env=env_base))``, drawing the words a chunk of steps at a time.
     """
     n = state.boards.shape[0]
     dev = state.boards.device
     chunks = (
-        philox.philox_bits(seed, min(_PLAIN_CHUNK, num_steps - t0), n, start_step=t0, device=dev)
+        philox.philox_bits(seed, min(_PLAIN_CHUNK, num_steps - t0), n, start_step=t0, first_env=env_base, device=dev)
         for t0 in range(0, num_steps, _PLAIN_CHUNK)
     )
     return _rollout_plain(state, chunks)
@@ -217,6 +219,7 @@ _ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_longlong,
     ctypes.c_int,
     ctypes.c_ulonglong,
+    ctypes.c_longlong,
     ctypes.c_void_p,
 ]
 
@@ -229,15 +232,15 @@ def _words_as_int32(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).contiguous()
 
 
-def _launch(state: EnvState, seed: int, num_steps: int, bits):
+def _launch(state: EnvState, seed: int, num_steps: int, bits, env_base: int):
     global launches
     from rein48_tpu_torch import build
 
     n = state.boards.shape[0]
     if state.boards.shape[1:] != (4, 4) or state.boards.dtype != torch.uint8:
         raise ValueError(f"boards must be uint8[B, 4, 4], got {state.boards.dtype} {tuple(state.boards.shape)}")
-    if not 0 <= num_steps < 2**31 or n >= 2**31:
-        raise ValueError(f"num_steps {num_steps} or batch {n} out of range")
+    if not 0 <= num_steps < 2**31 or n >= 2**31 or not 0 <= env_base < 2**62:
+        raise ValueError(f"num_steps {num_steps}, batch {n} or env_base {env_base} out of range")
     dev = state.boards.device
     for name in ("score", "steps"):
         t = getattr(state, name)
@@ -274,6 +277,7 @@ def _launch(state: EnvState, seed: int, num_steps: int, bits):
             n,
             num_steps,
             seed & (2**64 - 1),
+            env_base,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     launches += 1
@@ -283,27 +287,29 @@ def _launch(state: EnvState, seed: int, num_steps: int, bits):
 
 
 def rollout_random_fused(
-    state: EnvState, seed: int, num_steps: int, bits: torch.Tensor | None = None
+    state: EnvState, seed: int, num_steps: int, bits: torch.Tensor | None = None, env_base: int = 0
 ):
     """Run ``num_steps`` of uniform-random autoreset play over the batch.
 
     Args:
         state: batched :class:`EnvState` (leading axis B, any B).
         seed: key of the Philox streams (an int; env ``i`` of the batch
-            uses stream ``(seed, i)`` from step 0).
+            uses stream ``(seed, env_base + i)`` from step 0).
         num_steps: rollout length T.
         bits: optional injected words ``[T, 5, B]`` replacing Philox, so
             that the kernel can be held bit for bit against the plain
             version.
+        env_base: the global index of the batch's first env, where the
+            batch is a slice of a larger one (a rank's share).
 
     Returns:
         ``(final_state, FusedRolloutStats)``.
     """
     dev = state.boards.device
     if dev.type == "cuda":
-        return _launch(state, int(seed), num_steps, bits)
+        return _launch(state, int(seed), num_steps, bits, int(env_base))
     if dev.type != "cpu":
         raise ValueError(f"no rollout kernel for device {dev}")
     if bits is not None:
         return rollout_bits_reference(state, bits)
-    return rollout_random_reference(state, int(seed), num_steps)
+    return rollout_random_reference(state, int(seed), num_steps, int(env_base))

@@ -130,14 +130,15 @@ def step_words(seed, env: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
 
 
 def philox_bits(
-    seed, num_steps: int, batch: int, *, start_step: int = 0, device=None
+    seed, num_steps: int, batch: int, *, start_step: int = 0, first_env: int = 0, device=None
 ) -> torch.Tensor:
-    """Random words of envs ``0..batch-1`` for steps ``start_step..+T``.
+    """Random words of envs ``first_env..first_env+batch-1`` for steps
+    ``start_step..+T``.
 
     Returns int64 ``[T, 5, B]``: the layout the rollout kernel consumes in
     its injected-bits mode and generates itself in Philox mode.
     """
-    env = torch.arange(batch, dtype=torch.int64, device=device)
+    env = torch.arange(first_env, first_env + batch, dtype=torch.int64, device=device)
     step = torch.arange(start_step, start_step + num_steps, dtype=torch.int64, device=device)
     words = step_words(seed, env[None, :], step[:, None])  # [T, B, 5]
     return words.permute(0, 2, 1).contiguous()

@@ -14,6 +14,12 @@ noise and the working-dropout masks of the MLP from the learner's streams
 of the same seed, named by the update step (``engine/philox.py``), one draw
 per phase. Each phase takes the same draws injected instead. Nothing in an
 update reads a value back to the host.
+
+On a mesh (``parallel/``) each dp rank steps its slice of the global batch
+(env ids ``lo..hi``), takes the rows ``lo..hi`` of the learner's draws,
+normalizes the advantages over the global batch, and all-reduces the
+gradient before the clip; its metrics are combined over the ranks, so
+every rank reports the global batch's.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core, philox, vector
 from rein48_tpu_torch.engine.core import RewardMode
 from rein48_tpu_torch.models import nets
+from rein48_tpu_torch.parallel import mesh as mesh_lib
+from rein48_tpu_torch.parallel import spmd
 from rein48_tpu_torch.train import common
 
 
@@ -212,10 +220,15 @@ def rollout_policy(config, policy, env: core.EnvState, noise: torch.Tensor, *, b
 
 
 class A3CStep:
-    """One update, ``(state) -> (state, metrics)``, and its two phases."""
+    """One update, ``(state) -> (state, metrics)``, and its two phases.
 
-    def __init__(self, config: A3CConfig, model: nn.Module, optimizer: common.Optimizer):
-        self.config, self.model, self.optimizer = config, model, optimizer
+    With a ``mesh`` the state holds this rank's slice of the games, and
+    injected draws are the rank's rows.
+    """
+
+    def __init__(self, config: A3CConfig, model: nn.Module, optimizer: common.Optimizer, mesh=None):
+        self.config, self.model, self.optimizer, self.mesh = config, model, optimizer, mesh
+        self.rows, self.batch, self.group = mesh_lib.data_shard(mesh, config.batch_size)
         self.policy = policy_fn(model, config.obs_encoding)
         self.loss_cfg = a3c_agent.A3CLossConfig(
             gamma=config.gamma,
@@ -237,7 +250,7 @@ class A3CStep:
         cfg = self.config
         shape = (cfg.unroll_len, cfg.batch_size, nets.NUM_ACTIONS)
         if noise is None:
-            noise = philox.learner_gumbel(state.seed, state.update_step, shape, device=state.env.boards.device)
+            noise = philox.learner_gumbel(state.seed, state.update_step, shape, device=state.env.boards.device)[:, self.rows]
         env, traj, bootstrap, metrics = rollout_policy(cfg, self.policy, state.env, noise, bits=bits)
         targets = a3c_agent.n_step_returns(
             traj["rewards"], bootstrap, cfg.gamma, dones=traj["dones"], parity_drop_last_reward=cfg.parity_drop_last_reward
@@ -248,42 +261,56 @@ class A3CStep:
 
     def dropout_draws(self, state: A3CTrainState, n: int, device) -> torch.Tensor | None:
         """The MLP's working-dropout uniforms for ``n`` boards (None when
-        the net draws none): float ``[2, n, hidden]`` of the ``DROPOUT`` stream."""
+        the net draws none): float ``[2, n, hidden]`` of the ``DROPOUT`` stream.
+        On a mesh ``n`` is the rank's ``T * B / dp`` boards, the rank's rows
+        of the global ``[2, T, B, hidden]`` draw."""
         if not getattr(self.model, "dropout_active", False):
             return None
-        return philox.learner_uniform(
-            state.seed, state.update_step, philox.DROPOUT, (2, n, self.model.hidden), device=device
+        T, H = self.config.unroll_len, self.model.hidden
+        u = philox.learner_uniform(
+            state.seed, state.update_step, philox.DROPOUT, (2, T, self.config.batch_size, H), device=device
         )
+        return u[:, :, self.rows].reshape(2, n, H)
 
-    def learn(self, state: A3CTrainState, batch: Dict[str, torch.Tensor], *, dropout=None) -> Dict[str, torch.Tensor]:
-        """One forward and backward pass over all ``T * B`` boards and one
-        optimizer step. ``dropout`` replaces :meth:`dropout_draws`. Returns
-        ``loss``, ``actor_loss``, ``critic_loss``, ``entropy``, ``td_abs``
-        and ``grad_norm`` (before clipping), as device scalars."""
-        T, B = self.config.unroll_len, self.config.batch_size
+    def loss_and_grads(self, state: A3CTrainState, batch: Dict[str, torch.Tensor], *, dropout=None):
+        """One forward and backward pass over all ``T * B`` boards: the
+        loss's diagnostics and the gradient of the global batch (reduced
+        over the ranks on a mesh). ``dropout`` replaces :meth:`dropout_draws`."""
+        T, B = self.config.unroll_len, self.batch
         boards = batch["boards"].reshape(T * B, 4, 4)
         if dropout is None:
             dropout = self.dropout_draws(state, T * B, boards.device)
         logits, values = self.policy(boards, dropout)
         logits = a3c_agent.masked_logits(logits.reshape(T, B, nets.NUM_ACTIONS), batch["legal_mask"])
         loss_cfg = self.loss_cfg._replace(entropy_beta=entropy_beta_at(self.config, state.update_step))
-        loss, aux = a3c_agent.a3c_loss(logits, values.reshape(T, B), batch["actions"], batch["targets"], loss_cfg)
-        grads = torch.autograd.grad(loss, self.optimizer.params, allow_unused=True)
+        loss, aux = a3c_agent.a3c_loss(
+            logits, values.reshape(T, B), batch["actions"], batch["targets"], loss_cfg, group=self.group
+        )
+        grads = self.optimizer.reduce(torch.autograd.grad(loss, self.optimizer.params, allow_unused=True))
+        return aux, grads
+
+    def learn(self, state: A3CTrainState, batch: Dict[str, torch.Tensor], *, dropout=None) -> Dict[str, torch.Tensor]:
+        """:meth:`loss_and_grads` and one optimizer step. Returns ``loss``,
+        ``actor_loss``, ``critic_loss``, ``entropy``, ``td_abs`` and
+        ``grad_norm`` (before clipping), as device scalars."""
+        aux, grads = self.loss_and_grads(state, batch, dropout=dropout)
         self.optimizer.step(grads)
         metrics = {k: v.detach() for k, v in aux.items()}
-        metrics["grad_norm"] = common.tree_norm(grads)
+        metrics["grad_norm"] = self.optimizer.global_norm(grads)
         return metrics
 
     def __call__(self, state: A3CTrainState, *, bits=None, noise=None, dropout=None):
         env, batch, rollout_metrics = self.rollout(state, bits=bits, noise=noise)
         metrics = self.learn(state, batch, dropout=dropout)
-        metrics.update(rollout_metrics, env_steps=float(self.config.unroll_len * self.config.batch_size))
+        metrics.update(rollout_metrics)
+        metrics = spmd.reduce_metrics(metrics, self.group, sums=common.EPISODE_SUMS, maxes=("best_tile",))
+        metrics["env_steps"] = float(self.config.unroll_len * self.config.batch_size)
         return dataclasses.replace(state, env=env, update_step=state.update_step + 1), metrics
 
 
-def make_a3c_step(config: A3CConfig, model: nn.Module, optimizer: common.Optimizer) -> A3CStep:
+def make_a3c_step(config: A3CConfig, model: nn.Module, optimizer: common.Optimizer, mesh=None) -> A3CStep:
     """Build the update: rollout -> n-step targets -> one optimizer step."""
-    return A3CStep(config, model, optimizer)
+    return A3CStep(config, model, optimizer, mesh)
 
 
 def train_a3c(
@@ -302,9 +329,12 @@ def train_a3c(
     first update. With a ``checkpointer`` the config is saved, the latest
     checkpoint resumed, and the state saved at the logging points that
     ``save_every`` divides.
+
+    ``mesh`` (``parallel.mesh.make_mesh``, over the process group of which
+    this process is a rank): the env batch shards over "dp" and the
+    parameters and moments follow ``parallel.mesh.shard_params``; every rank
+    returns the same records, and only rank 0 logs and saves.
     """
-    if mesh is not None:
-        raise NotImplementedError("train_a3c(mesh=...) is not yet ported to rein48_tpu_torch")
     device = resolve_device(device)
     state, model, optimizer = init_a3c(config, seed, device)
     if checkpointer is not None:
@@ -312,7 +342,8 @@ def train_a3c(
     if checkpointer is not None and checkpointer.latest_step() is not None:
         state = checkpointer.restore(state)
         print(f"resumed from checkpoint step {state.update_step}", flush=True)
-    step = make_a3c_step(config, model, optimizer)
+    state = common.place_on_mesh(mesh, state, optimizer, model, checkpointer=checkpointer)
+    step = make_a3c_step(config, model, optimizer, mesh)
 
     history = []
     base = state.update_step
@@ -335,9 +366,6 @@ def train_a3c(
                 "best_tile": m["best_tile"],
                 "steps_per_sec": (i + 1) * config.batch_size * config.unroll_len / (time.perf_counter() - t0),
             }
+            common.log_and_save(record, logger, checkpointer, base + i + 1, state, mesh)
             history.append(record)
-            if logger is not None:
-                logger.write(record)
-            if checkpointer is not None:
-                checkpointer.maybe_save(base + i + 1, state)
     return state, history

@@ -21,6 +21,12 @@ from the learner's streams of the same seed, named by the update step
 (``engine/philox.py``), one draw per phase. Each phase takes the same
 draws injected instead. Nothing in an update reads a value back to the
 host.
+
+On a mesh (``parallel/``) each dp rank steps its slice of the global batch,
+takes the rows ``lo..hi`` of the learner's draws and, with
+``shard_friendly_perm``, regresses its envs' share of every minibatch; the
+gradient is all-reduced before the clip and the metrics are combined over
+the ranks.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core, philox, vector
 from rein48_tpu_torch.engine.core import RewardMode
 from rein48_tpu_torch.models import nets
+from rein48_tpu_torch.parallel import mesh as mesh_lib
+from rein48_tpu_torch.parallel import spmd
 from rein48_tpu_torch.train import common
 
 @dataclasses.dataclass(frozen=True)
@@ -162,16 +170,21 @@ class AfterstateTDStep:
     """One update, ``(state) -> (state, metrics)``, and its two phases.
 
     Raises JAX's ``ValueError`` when ``shard_friendly_perm`` is on and
-    ``num_minibatches`` does not divide ``unroll_len``.
+    ``num_minibatches`` does not divide ``unroll_len``. With a ``mesh`` the
+    state holds this rank's slice of the games, and injected draws are the
+    rank's rows.
     """
 
-    def __init__(self, config: AfterstateTDConfig, model: nn.Module, optimizer: common.Optimizer):
+    def __init__(self, config: AfterstateTDConfig, model: nn.Module, optimizer: common.Optimizer, mesh=None):
         T, M = config.unroll_len, config.num_minibatches
         if config.shard_friendly_perm and T % M:
             raise ValueError(f"shard_friendly_perm needs unroll_len={T} divisible by num_minibatches={M}")
         if (T * config.batch_size) % M:
             raise ValueError(f"num_minibatches={M} must divide unroll_len x batch_size={T * config.batch_size}")
+        if mesh is not None and mesh.dp > 1 and not config.shard_friendly_perm:
+            raise ValueError("a mesh needs shard_friendly_perm: a permutation of all samples would move them between ranks")
         self.config, self.model, self.optimizer = config, model, optimizer
+        self.rows, self.batch, self.group = mesh_lib.data_shard(mesh, config.batch_size)
         self.value = make_value_fn(config, model)
         self.act_values = make_act_values(config, model)
 
@@ -188,11 +201,13 @@ class AfterstateTDStep:
         float32[T, B]}``, and the rollout's episode sums (device scalars).
         """
         cfg = self.config
-        T, B = cfg.unroll_len, cfg.batch_size
+        T, B = cfg.unroll_len, self.batch
         env = state.env
         rows = torch.arange(B, device=env.boards.device)
         if cfg.epsilon > 0.0 and draws is None:
-            draws = philox.learner_uniform(state.seed, state.update_step, philox.EPSILON, (T, 2, B), device=rows.device)
+            shape = (T, 2, cfg.batch_size)
+            draws = philox.learner_uniform(state.seed, state.update_step, philox.EPSILON, shape, device=rows.device)
+            draws = draws[..., self.rows]
         after_boards, rewards, dones, values = [], [], [], []
         episodes, tile_sum, length, best = [], [], [], []
         for t in range(T):
@@ -242,12 +257,13 @@ class AfterstateTDStep:
 
     def permutations(self, state: AfterstateTDState, device) -> torch.Tensor:
         """The update's shuffles, one per epoch: ``[T, B]`` time indices per
-        env or, without ``shard_friendly_perm``, one permutation of all
-        ``T * B`` samples (``common.shuffles``)."""
+        env (on a mesh, the rank's envs) or, without ``shard_friendly_perm``,
+        one permutation of all ``T * B`` samples (``common.shuffles``)."""
         cfg = self.config
-        return common.shuffles(
+        perms = common.shuffles(
             state.seed, state.update_step, cfg.num_epochs, cfg.unroll_len, cfg.batch_size, cfg.shard_friendly_perm, device
         )
+        return perms[..., self.rows]
 
     def minibatches(self, batch: Dict[str, torch.Tensor], perm: torch.Tensor):
         """``(boards[M, N, 4, 4], targets[M, N])`` of one epoch's shuffle."""
@@ -277,21 +293,25 @@ class AfterstateTDStep:
             for boards, targets in zip(*self.minibatches(batch, perm)):
                 v = self.value(boards)
                 loss = torch.mean(torch.square(v - targets))
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                aux.append((loss.detach(), v.detach().mean(), targets.mean(), common.tree_norm(grads)))
+                grads = self.optimizer.reduce(torch.autograd.grad(loss, params, allow_unused=True))
+                aux.append((loss.detach(), v.detach().mean(), targets.mean(), self.optimizer.global_norm(grads)))
                 self.optimizer.step(grads)
         return {k: torch.stack(col).mean() for k, col in zip(("loss", "v_mean", "target_mean", "grad_norm"), zip(*aux))}
 
     def __call__(self, state: AfterstateTDState, *, bits=None, draws=None, perms=None):
         env, batch, rollout_metrics = self.rollout(state, bits=bits, draws=draws)
         metrics = self.learn(state, batch, perms=perms)
-        metrics.update(rollout_metrics, env_steps=float(self.config.unroll_len * self.config.batch_size))
+        metrics.update(rollout_metrics)
+        metrics = spmd.reduce_metrics(metrics, self.group, sums=common.EPISODE_SUMS, maxes=("best_tile",))
+        metrics["env_steps"] = float(self.config.unroll_len * self.config.batch_size)
         return dataclasses.replace(state, env=env, update_step=state.update_step + 1), metrics
 
 
-def make_afterstate_td_step(config: AfterstateTDConfig, model: nn.Module, optimizer: common.Optimizer) -> AfterstateTDStep:
+def make_afterstate_td_step(
+    config: AfterstateTDConfig, model: nn.Module, optimizer: common.Optimizer, mesh=None
+) -> AfterstateTDStep:
     """Build the update: greedy-TD rollout -> targets -> SGD epochs."""
-    return AfterstateTDStep(config, model, optimizer)
+    return AfterstateTDStep(config, model, optimizer, mesh)
 
 
 def train_afterstate_td(
@@ -312,9 +332,9 @@ def train_afterstate_td(
     checkpoint resumed, and the state saved at the logging points that
     ``save_every`` divides. ``warm_start_params`` (a ``state_dict`` of the
     model) seeds the value net when nothing is resumed.
+
+    ``mesh``: as in ``train_a3c``.
     """
-    if mesh is not None:
-        raise NotImplementedError("train_afterstate_td(mesh=...) is not yet ported to rein48_tpu_torch")
     device = resolve_device(device)
     state, model, optimizer = init_afterstate_td(config, seed, device)
     if checkpointer is not None:
@@ -325,7 +345,8 @@ def train_afterstate_td(
     elif warm_start_params is not None:
         model.load_state_dict(warm_start_params)
         print("warm-started afterstate value params", flush=True)
-    step = make_afterstate_td_step(config, model, optimizer)
+    state = common.place_on_mesh(mesh, state, optimizer, model, checkpointer=checkpointer)
+    step = make_afterstate_td_step(config, model, optimizer, mesh)
 
     history = []
     base = state.update_step
@@ -347,9 +368,6 @@ def train_afterstate_td(
                 "best_tile": m["best_tile"],
                 "steps_per_sec": (i + 1) * config.batch_size * config.unroll_len / (time.perf_counter() - t0),
             }
+            common.log_and_save(record, logger, checkpointer, base + i + 1, state, mesh)
             history.append(record)
-            if logger is not None:
-                logger.write(record)
-            if checkpointer is not None:
-                checkpointer.maybe_save(base + i + 1, state)
     return state, history

@@ -14,14 +14,18 @@ of the parameters and reads nothing back to the host.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rein48_tpu_torch.engine import philox
 from rein48_tpu_torch.models import obs as obs_lib
+from rein48_tpu_torch.parallel import mesh as mesh_lib
+from rein48_tpu_torch.parallel import spmd
 
 OBS_ENCODERS = {
     "onehot": obs_lib.encode_onehot,
@@ -34,6 +38,9 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 ADAMW_WEIGHT_DECAY = 1e-4
 # The reference A3C's tf.train.RMSPropOptimizer defaults.
 RMSPROP_DECAY, RMSPROP_EPS = 0.9, 1e-10
+# The episode metrics that add up over the ranks of a mesh (the best tile
+# is their max, the losses their mean).
+EPISODE_SUMS = ("episodes", "episode_tile_sum_sum", "episode_length_sum")
 
 
 def encode_obs(boards: torch.Tensor, encoding: str) -> torch.Tensor:
@@ -111,6 +118,13 @@ class Optimizer:
     The moments ``mu``/``nu`` are float32 tensors beside the parameters,
     zero at the start. :meth:`state_dict` and :meth:`load_state_dict` carry
     the whole state (a checkpoint or another device).
+
+    On a mesh (``parallel/``) the learner passes its gradients through
+    :meth:`reduce` before the step, so the clip sees the global batch's
+    gradient as optax does; ``dp_group`` is the group they are reduced over,
+    ``sharded`` the indices of the parameters that hold a tp rank's slice
+    (``parallel.mesh.shard_params``) and ``tp_group`` the group over which
+    the global norm sums their squares.
     """
 
     def __init__(self, name: str, learning_rate, params: Sequence[torch.Tensor], *, max_grad_norm: float | None):
@@ -121,19 +135,45 @@ class Optimizer:
         self.count = 0
         moments = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"), "rmsprop": ("nu",), "sgd": ()}[name]
         self.moments = {m: [torch.zeros_like(p, memory_format=torch.preserve_format) for p in self.params] for m in moments}
+        self.dp_group = self.tp_group = None
+        self.sharded: set[int] = set()
 
     def lr(self) -> float:
         """The learning rate of the next step."""
         return self.learning_rate(self.count) if callable(self.learning_rate) else self.learning_rate
 
     @torch.no_grad()
+    def reduce(self, grads: Sequence[torch.Tensor | None], *, average: bool = True) -> list:
+        """The gradients of the global batch: summed over ``dp_group`` in one
+        flat buffer and, with ``average``, divided by its size (local means
+        of equal shares). Without a group they are returned as they are."""
+        if self.dp_group is None:
+            return list(grads)
+        if average:
+            return spmd.psum_mean_grads(grads, self.dp_group, self.params)
+        return spmd.psum_grads(grads, self.params, self.dp_group)
+
+    def global_norm(self, grads: Sequence[torch.Tensor | None]) -> torch.Tensor:
+        """``tree_norm`` of the whole parameter set's gradient: with tp the
+        squares of the sharded tensors summed over the tp group, once, and
+        the replicated tensors counted once."""
+        if not self.sharded or self.tp_group is None:
+            return tree_norm(grads)
+        zero = torch.zeros((), device=self.params[0].device)
+        sharded = sum((torch.sum(g * g) for i, g in enumerate(grads) if g is not None and i in self.sharded), zero)
+        replicated = sum((torch.sum(g * g) for i, g in enumerate(grads) if g is not None and i not in self.sharded), zero)
+        dist.all_reduce(sharded, group=self.tp_group)
+        return torch.sqrt(sharded + replicated)
+
+    @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor | None]) -> None:
-        """One update from ``grads`` (aligned with ``params``; ``None`` is zero)."""
+        """One update from ``grads`` (aligned with ``params``; ``None`` is
+        zero), already passed through :meth:`reduce` on a mesh."""
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
         if self.max_grad_norm is not None:
-            norm = tree_norm(grads)
+            norm = self.global_norm(grads)
             keep = norm < self.max_grad_norm
             grads = [torch.where(keep, g, (g / norm) * self.max_grad_norm) for g in grads]
         neg_lr = -self.lr()
@@ -184,3 +224,38 @@ def make_optimizer(
     ``count -> lr``.
     """
     return Optimizer(name, learning_rate, params, max_grad_norm=max_grad_norm)
+
+
+def place_on_mesh(mesh, state, optimizer: Optimizer | None, *models, checkpointer=None, batched=("env",)):
+    """A trainer's state on a mesh (``parallel/``): this rank's rows of the
+    ``batched`` fields (each with the global batch as axis 0), and the
+    learner placed (``parallel.mesh.place_learner``; a learner without an
+    optimizer has nothing to place). Without a mesh the state as it is.
+    Checkpoints of tp-sharded parameters are refused."""
+    if mesh is None:
+        return state
+    if mesh.group is None and mesh.dp * mesh.tp > 1:
+        raise ValueError(f"a mesh of {mesh.dp * mesh.tp} ranks needs their process group: make it after multihost.initialize()")
+    if mesh.tp > 1 and checkpointer is not None:
+        raise ValueError("checkpoints hold whole parameters: train with tp=1 to checkpoint")
+    state = dataclasses.replace(state, **{k: mesh_lib.shard_batch(getattr(state, k), mesh) for k in batched})
+    if optimizer is not None:
+        mesh_lib.place_learner(mesh, optimizer, *models)
+    return state
+
+
+def log_and_save(record: dict, logger, checkpointer, step: int, state, mesh=None, batched=("env",), gather=None) -> None:
+    """Log a record and save at the points ``save_every`` divides. On a mesh
+    rank 0 logs; every rank takes part in a save, which gathers the global
+    state (the ``batched`` fields, or ``gather``), and rank 0 writes it."""
+    if logger is not None and (mesh is None or mesh.is_primary):
+        logger.write(record)
+    if checkpointer is None:
+        return
+    if mesh is None:
+        checkpointer.maybe_save(step, state)
+        return
+    if gather is None:
+        def gather(s):
+            return dataclasses.replace(s, **{k: mesh_lib.gather_batch(getattr(s, k), mesh) for k in batched})
+    checkpointer.maybe_save(step, state, gather=gather)

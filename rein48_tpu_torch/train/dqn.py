@@ -22,6 +22,16 @@ uniforms, the random actions' draws and the sample's indices from the
 learner's ``EPSILON``, ``SAMPLE`` and ``REPLAY`` streams of the same seed,
 named by the update step (``engine/philox.py``), one draw each per update.
 Each phase also takes those draws injected.
+
+On a mesh (``parallel/``) the buffer keeps the global layout without moving
+rows: a step's ``N = num_envs`` transitions land at slots ``cursor ..
+cursor + N``, so with ``capacity % N == 0`` slot ``s`` always holds env ``s %
+N``, and a dp rank stores the slots of its own envs, ``capacity / dp`` rows,
+in a ring of its own (its cursor and size are the global ones over ``dp``).
+Every rank draws the same global sample indices, computes the loss terms of
+the samples it holds (an n-step chain stays on one env, so on one rank), and
+divides their sums by the global batch size; the all-reduced sum of those
+gradients is the global mean's.
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core, philox, vector
 from rein48_tpu_torch.engine.core import RewardMode
 from rein48_tpu_torch.models import nets
+from rein48_tpu_torch.parallel import mesh as mesh_lib
+from rein48_tpu_torch.parallel import spmd
 from rein48_tpu_torch.train import common
 
 
@@ -198,11 +210,52 @@ def transitions(env: core.EnvState, actions, env2: core.EnvState, out: vector.St
     }
 
 
-class DQNStep:
-    """One update, ``(state) -> (state, metrics)``, and its two phases."""
+def check_mesh_layout(config: DQNConfig, mesh) -> None:
+    """The sharded buffer's rule: ``replay_capacity % num_envs == 0`` and
+    ``num_envs % dp == 0``, so that every slot's env, and its rank, is fixed."""
+    if config.replay_capacity % config.num_envs or config.num_envs % mesh.dp:
+        raise ValueError(
+            f"a mesh needs replay_capacity % num_envs == 0 and num_envs % dp == 0, got replay_capacity="
+            f"{config.replay_capacity}, num_envs={config.num_envs}, dp={mesh.dp}"
+        )
 
-    def __init__(self, config: DQNConfig, model: nn.Module, target_model: nn.Module, optimizer: common.Optimizer):
-        self.config, self.model, self.target_model, self.optimizer = config, model, target_model, optimizer
+
+def shard_replay(replay: replay_lib.ReplayState, num_envs: int, mesh) -> replay_lib.ReplayState:
+    """This rank's ring of a global buffer: the slots of its envs, in order."""
+    rows = mesh_lib.batch_slice(mesh, num_envs)
+    data = {k: v.reshape((-1, num_envs) + v.shape[1:])[:, rows].flatten(0, 1).clone() for k, v in replay.data.items()}
+    return replay_lib.ReplayState(data=data, cursor=replay.cursor // mesh.dp, size=replay.size // mesh.dp)
+
+
+def gather_replay(replay: replay_lib.ReplayState, num_envs: int, mesh) -> replay_lib.ReplayState:
+    """The global buffer from every rank's ring, in the global slot order."""
+    n = num_envs // mesh.dp
+
+    def whole(v):
+        parts = spmd.all_gather(v.reshape((-1, n) + v.shape[1:]), mesh.dp_group)  # [dp, rows, n, ...]
+        return parts.transpose(0, 1).flatten(0, 2)
+
+    data = {k: whole(v) for k, v in replay.data.items()}
+    return replay_lib.ReplayState(data=data, cursor=replay.cursor * mesh.dp, size=replay.size * mesh.dp)
+
+
+class DQNStep:
+    """One update, ``(state) -> (state, metrics)``, and its two phases.
+
+    With a ``mesh`` the state holds this rank's games and ring of the buffer
+    (:func:`shard_replay`); injected acting draws are the rank's rows, and
+    sample indices are global.
+    """
+
+    def __init__(
+        self, config: DQNConfig, model: nn.Module, target_model: nn.Module, optimizer: common.Optimizer, mesh=None
+    ):
+        if mesh is not None:
+            check_mesh_layout(config, mesh)
+        self.config, self.model, self.target_model, self.optimizer, self.mesh = config, model, target_model, optimizer, mesh
+        self.rows, self.envs, self.group = mesh_lib.data_shard(mesh, config.num_envs)
+        # The buffer's cursor and size are the global ones over dp.
+        self.dp = 1 if mesh is None else mesh.dp
         # With n-step targets the bootstrap discount is gamma**n_step.
         self.loss_cfg = dqn_agent.DQNLossConfig(
             gamma=config.gamma**config.n_step, double_dqn=config.double_dqn, huber_delta=config.huber_delta
@@ -219,7 +272,7 @@ class DQNStep:
             random_draw = philox.learner_gumbel(state.seed, state.update_step, shape + (4,), device=device)
         else:
             random_draw = philox.learner_words(state.seed, state.update_step, philox.SAMPLE, shape, device=device)
-        return explore_u, random_draw
+        return explore_u[:, self.rows], random_draw[:, self.rows]
 
     @torch.no_grad()
     def act(self, state: DQNTrainState, *, explore_u=None, random_draw=None):
@@ -246,33 +299,52 @@ class DQNStep:
 
     def sample_indices(self, state: DQNTrainState, replay: replay_lib.ReplayState) -> torch.Tensor:
         """The learn batch's draw: slots in ``[0, max(size, 1))``, or with
-        ``n_step > 1`` chain starts (age indices) in the valid window."""
+        ``n_step > 1`` chain starts (age indices) in the valid window, of the
+        global buffer."""
         cfg = self.config
+        size = replay.size * self.dp
         if cfg.n_step > 1:
-            n = replay_lib.nstep_valid(replay, cfg.n_step, cfg.num_envs)
+            n = max(size - (cfg.n_step - 1) * cfg.num_envs, 1)
         else:
-            n = max(replay.size, 1)
+            n = max(size, 1)
         device = next(iter(replay.data.values())).device
         return replay_lib.sample_indices(state.seed, state.update_step, cfg.learn_batch_size, n, device)
 
     def sample(self, replay: replay_lib.ReplayState, indices: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The learn batch at ``indices``: 1-step transitions, or ``n_step``
-        chains reduced to 1-step form."""
+        chains reduced to 1-step form. On a mesh, the samples this rank holds."""
         cfg = self.config
+        if self.mesh is None:
+            if cfg.n_step > 1:
+                return replay_lib.replay_sample_nstep(replay, indices, n_step=cfg.n_step, stride=cfg.num_envs, gamma=cfg.gamma)
+            return replay_lib.replay_sample(replay, indices)
+        N, dp = cfg.num_envs, self.dp
         if cfg.n_step > 1:
-            return replay_lib.replay_sample_nstep(replay, indices, n_step=cfg.n_step, stride=cfg.num_envs, gamma=cfg.gamma)
-        return replay_lib.replay_sample(replay, indices)
+            if cfg.n_step * N > replay.capacity * dp:
+                raise ValueError(f"n_step*stride={cfg.n_step * N} exceeds capacity {replay.capacity * dp}")
+            slots = replay_lib.nstep_slots(replay.cursor * dp, replay.size * dp, replay.capacity * dp, indices, cfg.n_step, N)
+        else:
+            slots = indices[:, None]
+        env = slots[:, 0] % N
+        mine = torch.nonzero((env >= self.rows.start) & (env < self.rows.stop))[:, 0]
+        # Global slot k * N + e is local slot k * envs + (e - lo).
+        local = (slots[mine] // N) * self.envs + slots[mine] % N - self.rows.start
+        if cfg.n_step > 1:
+            return replay_lib.nstep_from_slots(replay.data, local, cfg.gamma)
+        return replay_lib.replay_sample(replay, local[:, 0])
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """The TD loss of a learn batch and its diagnostics: ``Q_online(s)``
-        with a gradient, ``Q_online(s')`` and ``Q_target(s')`` without."""
+        with a gradient, ``Q_online(s')`` and ``Q_target(s')`` without. On a
+        mesh of dp > 1, the rank's sums over the global batch size."""
         cfg = self.config
         q_online = q_values(self.model, batch["board"], cfg.obs_encoding)
         with torch.no_grad():
             q_online_next = q_values(self.model, batch["next_board"], cfg.obs_encoding)
             q_target_next = q_values(self.target_model, batch["next_board"], cfg.obs_encoding)
         return dqn_agent.dqn_loss(
-            q_online, q_online_next, q_target_next, batch["action"], batch["reward"], batch["done"], self.loss_cfg
+            q_online, q_online_next, q_target_next, batch["action"], batch["reward"], batch["done"], self.loss_cfg,
+            count=None if self.dp == 1 else cfg.learn_batch_size,
         )
 
     def learn(self, state: DQNTrainState, replay: replay_lib.ReplayState, *, indices=None) -> Dict[str, torch.Tensor]:
@@ -284,10 +356,10 @@ class DQNStep:
         if indices is None:
             indices = self.sample_indices(state, replay)
         loss, aux = self.loss(self.sample(replay, indices))
-        grads = torch.autograd.grad(loss, self.optimizer.params, allow_unused=True)
+        grads = self.optimizer.reduce(torch.autograd.grad(loss, self.optimizer.params, allow_unused=True), average=False)
         metrics = {k: v.detach() for k, v in aux.items()}
-        metrics["grad_norm"] = common.tree_norm(grads)
-        if replay.size >= min(cfg.min_replay_before_learn, cfg.replay_capacity):
+        metrics["grad_norm"] = self.optimizer.global_norm(grads)
+        if replay.size * self.dp >= min(cfg.min_replay_before_learn, cfg.replay_capacity):
             self.optimizer.step(grads)
         sync_target(cfg, self.target_model, self.model, state.update_step + 1)
         return metrics
@@ -295,16 +367,23 @@ class DQNStep:
     def __call__(self, state: DQNTrainState, *, explore_u=None, random_draw=None, indices=None):
         env, replay, env_steps, info = self.act(state, explore_u=explore_u, random_draw=random_draw)
         metrics = self.learn(state, replay, indices=indices)
+        metrics.update(info)
+        if self.mesh is not None:
+            # The loss terms are the rank's shares of the global means: they add up.
+            sums = common.EPISODE_SUMS + ("loss", "td_abs", "q_mean", "target_mean")
+            metrics = spmd.reduce_metrics(metrics, self.group, sums=sums, maxes=("best_tile",))
         metrics.update(
-            info, epsilon=epsilon_at(self.config, env_steps), replay_size=float(replay.size), env_steps=float(env_steps)
+            epsilon=epsilon_at(self.config, env_steps), replay_size=float(replay.size * self.dp), env_steps=float(env_steps)
         )
         new_state = dataclasses.replace(state, env=env, replay=replay, update_step=state.update_step + 1, env_steps=env_steps)
         return new_state, metrics
 
 
-def make_dqn_step(config: DQNConfig, model: nn.Module, target_model: nn.Module, optimizer: common.Optimizer) -> DQNStep:
+def make_dqn_step(
+    config: DQNConfig, model: nn.Module, target_model: nn.Module, optimizer: common.Optimizer, mesh=None
+) -> DQNStep:
     """Build the update: act -> store -> sample -> learn -> sync."""
-    return DQNStep(config, model, target_model, optimizer)
+    return DQNStep(config, model, target_model, optimizer, mesh)
 
 
 def train_dqn(
@@ -324,9 +403,14 @@ def train_dqn(
     since this call's first update. With a ``checkpointer`` the config is
     saved, the latest checkpoint resumed (the buffer with it), and the
     state saved at the logging points that ``save_every`` divides.
+
+    ``mesh``: as in ``train_a3c``, with the buffer sharded by env
+    (:class:`DQNStep`); a checkpoint holds the global buffer. Raises
+    ``ValueError`` unless ``replay_capacity % num_envs == 0`` and ``num_envs
+    % dp == 0``.
     """
     if mesh is not None:
-        raise NotImplementedError("train_dqn(mesh=...) is not yet ported to rein48_tpu_torch")
+        check_mesh_layout(config, mesh)
     device = resolve_device(device)
     state, model, optimizer = init_dqn(config, seed, device)
     if checkpointer is not None:
@@ -334,7 +418,17 @@ def train_dqn(
     if checkpointer is not None and checkpointer.latest_step() is not None:
         state = checkpointer.restore(state)
         print(f"resumed from checkpoint step {state.update_step}", flush=True)
-    step = make_dqn_step(config, model, state.target_model, optimizer)
+    gather = None
+    if mesh is not None:
+        state = dataclasses.replace(state, replay=shard_replay(state.replay, config.num_envs, mesh))
+        mesh_lib.shard_params(state.target_model, mesh)
+
+        def gather(s):
+            env, replay = mesh_lib.gather_batch(s.env, mesh), gather_replay(s.replay, config.num_envs, mesh)
+            return dataclasses.replace(s, env=env, replay=replay)
+
+    state = common.place_on_mesh(mesh, state, optimizer, model, checkpointer=checkpointer)
+    step = make_dqn_step(config, model, state.target_model, optimizer, mesh)
 
     history = []
     base = state.update_step
@@ -358,9 +452,6 @@ def train_dqn(
                 "best_tile": m["best_tile"],
                 "steps_per_sec": m["env_steps"] / dt,
             }
+            common.log_and_save(record, logger, checkpointer, base + i + 1, state, mesh, gather=gather)
             history.append(record)
-            if logger is not None:
-                logger.write(record)
-            if checkpointer is not None:
-                checkpointer.maybe_save(base + i + 1, state)
     return state, history

@@ -13,7 +13,25 @@ and the tables are updated in place. Acting draws its spawns from the
 engine's Philox streams (``engine/vector.py``). On a card the ``"mxu"``
 backend runs the table kernels of ``ops/tables.py`` and the ``"cached"``
 backend those of ``ops/hbm_tables.py``, both the fused value kernel of
-``ops/ntuple_value.py``. ``mesh`` is not yet ported.
+``ops/ntuple_value.py``.
+
+On a mesh (``parallel/``) each dp rank steps its slice of the global batch
+and acts on its own boards, and the tables stay replicated. Before each
+window's update every rank gathers every rank's backups, in the global
+batch's order, and applies the whole window with its backend (its scatter
+kernel on the card), as one process would; then the entries the window
+touched take rank 0's values on every rank. A backup is 20 bytes and a
+touched entry 4 bytes per array, where the dense statistics of a table
+are 12 bytes per entry of the table.
+
+Why not sum each rank's dense statistics instead, as XLA sums the
+per-device scatters in JAX: a reassociated sum moves a table entry by an
+ulp, and the values of mirror-image afterstates tie to the ulp, so greedy
+decisions then part from the one-process run's within an update. Why the
+touched entries: the kernels add with atomics in an order that changes
+from run to run (as ``index_add_`` does on the card), so replicas that
+each applied the window would drift apart; every other entry moves by an
+exact 0 on every rank.
 """
 
 from __future__ import annotations
@@ -30,7 +48,11 @@ from rein48_tpu_torch.control import search
 from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core, vector
 from rein48_tpu_torch.ops import tables as table_ops
-from rein48_tpu_torch.train import evaluate
+from rein48_tpu_torch.parallel import spmd
+from rein48_tpu_torch.train import common, evaluate
+
+# The trainer's fields that hold the env batch (sharded over "dp" on a mesh).
+BATCHED = ("env", "prev_after", "prev_valid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,12 +187,48 @@ def _policy_and_backups(net, params, env, prev_after, prev_valid):
     return env2, chosen_after, done, upd_boards, upd_errs, metrics
 
 
-def make_ntuple_step(config: NTupleTrainConfig, device=None):
+def gather_backups(boards: list, errs: list, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A window's backups of every rank, in the global batch's order.
+
+    ``boards`` and ``errs`` hold one ``[2 * b, ...]`` entry per step (the
+    rank's ``b`` previous afterstates, then its ``b`` chosen ones); the
+    result is what one process would have concatenated: per step the
+    previous afterstates of all ranks, then the chosen ones. One gather of
+    20 bytes per backup, exact.
+    """
+    S, n = len(boards), boards[0].shape[0] // 2
+    packed = torch.cat(
+        [torch.stack(boards).reshape(S, 2, n, 16), torch.stack(errs).reshape(S, 2, n, 1).view(torch.uint8)], dim=-1
+    )
+    full = spmd.all_gather(packed, group).permute(1, 2, 0, 3, 4).reshape(-1, 20)
+    return full[:, :16].reshape(-1, 4, 4), full[:, 16:].contiguous().view(torch.float32).reshape(-1)
+
+
+def share_touched(net: ntuple_lib.NTupleNetwork, params: Dict[str, torch.Tensor], boards: torch.Tensor, group) -> None:
+    """Give every rank rank 0's values of the table entries (and their TC
+    accumulators) that a window of ``boards`` touched: one broadcast."""
+    touched, keys = [], []
+    for i, idx in enumerate(net.indices(boards)):
+        ids = torch.unique(net.physical_ids(params, i, idx.reshape(-1)))
+        for key in (f"t{i}", f"t{i}_E", f"t{i}_A"):
+            if key in params:
+                touched.append(ids)
+                keys.append(key)
+    values = torch.cat([params[k][ids] for k, ids in zip(keys, touched)])
+    spmd.broadcast_from_first(values, group)
+    for k, ids, v in zip(keys, touched, values.split([t.numel() for t in touched])):
+        params[k][ids] = v
+
+
+def make_ntuple_step(config: NTupleTrainConfig, device=None, mesh=None):
     """Build one update: ``steps_per_update`` TD steps.
 
     Returns ``step_fn(state) -> (state, metrics)``; ``state`` must live on
     ``device`` (resolved as :func:`init_ntuple` resolves it), and its
-    tables are updated in place.
+    tables are updated in place. With a ``mesh`` the state holds this
+    rank's slice of the games, each window's backups are gathered before
+    the tables move (:func:`gather_backups`, :func:`share_touched`), and the
+    metrics are combined over the ranks.
     """
     device = resolve_device(device)
     net = get_network(config.network_config(device))
@@ -189,6 +247,7 @@ def make_ntuple_step(config: NTupleTrainConfig, device=None):
     # "step" mode is a window of one step whose backups land at once.
     if config.update_mode == "step":
         window = 1
+    group = None if mesh is None else mesh.dp_group
 
     def apply(params, boards, errs):
         if config.update_mode == "delayed":
@@ -214,11 +273,18 @@ def make_ntuple_step(config: NTupleTrainConfig, device=None):
                 boards.append(upd_boards)
                 errs.append(upd_errs)
                 ms.append(m)
-            params = apply(params, torch.cat(boards), torch.cat(errs))
+            if mesh is None:
+                params = apply(params, torch.cat(boards), torch.cat(errs))
+            else:
+                all_boards, all_errs = gather_backups(boards, errs, group)
+                params = apply(params, all_boards, all_errs)
+                share_touched(net, params, all_boards, group)
         stacked = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-        metrics = {k: stacked[k].sum() for k in ("episodes", "episode_score_sum", "episode_tile_sum_sum", "episode_length_sum")}
+        sums = ("episodes", "episode_score_sum", "episode_tile_sum_sum", "episode_length_sum", "td_abs_err", "td_updates")
+        metrics = {k: stacked[k].sum() for k in sums}
         metrics["best_tile"] = stacked["best_tile"].max()
-        metrics["td_abs_err"] = stacked["td_abs_err"].sum() / torch.clamp(stacked["td_updates"].sum(), min=1.0)
+        metrics = spmd.reduce_metrics(metrics, group, sums=sums, maxes=("best_tile",))
+        metrics["td_abs_err"] = metrics["td_abs_err"] / torch.clamp(metrics.pop("td_updates"), min=1.0)
         metrics["env_steps"] = float(config.steps_per_update * config.batch_size)
         new_state = NTupleTrainState(
             params=params, env=env, prev_after=prev_after, prev_valid=prev_valid, update_step=state.update_step + 1
@@ -248,9 +314,11 @@ def train_ntuple(
     tables. With a ``checkpointer`` the config is saved, the latest
     checkpoint resumed, and the state saved at the logging points that
     ``save_every`` divides, as in JAX.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): the env batch shards over "dp"
+    and the tables stay replicated (:func:`make_ntuple_step`); every rank
+    returns the same records, and only rank 0 logs and saves.
     """
-    if mesh is not None:
-        raise NotImplementedError("train_ntuple(mesh=...) is not yet ported to rein48_tpu_torch")
     device = resolve_device(device)
     state, net = init_ntuple(config, seed, device)
     if checkpointer is not None:
@@ -258,7 +326,11 @@ def train_ntuple(
     if checkpointer is not None and checkpointer.latest_step() is not None:
         state = checkpointer.restore(state)
         print(f"resumed from checkpoint step {state.update_step}", flush=True)
-    step = make_ntuple_step(config, device)
+    if mesh is not None:
+        # The tables are built or restored alike on every rank; compare their sums.
+        spmd.assert_replicated([t.sum(dtype=torch.float64) for t in state.params.values()], mesh.group, "tables")
+    state = common.place_on_mesh(mesh, state, None, checkpointer=checkpointer, batched=BATCHED)
+    step = make_ntuple_step(config, device, mesh)
     cached = net.config.backend == "cached"
     if cached:
         # After a resume the heat is real; on a fresh init every row's heat
@@ -286,11 +358,8 @@ def train_ntuple(
                 "td_abs_err": m["td_abs_err"],
                 "steps_per_sec": (i + 1) * config.batch_size * config.steps_per_update / dt,
             }
+            common.log_and_save(record, logger, checkpointer, base + i + 1, state, mesh, batched=BATCHED)
             history.append(record)
-            if logger is not None:
-                logger.write(record)
-            if checkpointer is not None:
-                checkpointer.maybe_save(base + i + 1, state)
     return state, history
 
 

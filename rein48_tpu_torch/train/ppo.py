@@ -16,6 +16,13 @@ spawns come from its Philox streams; the sampling noise and the shuffles
 from the learner's streams of the same seed, named by the update step
 (``engine/philox.py``), one draw per phase. Each phase takes the same draws
 injected instead. Nothing in an update reads a value back to the host.
+
+On a mesh (``parallel/``) each dp rank steps its slice of the global batch
+and takes the rows ``lo..hi`` of the learner's draws. The shuffles must be
+``shard_friendly_perm`` (each minibatch holds a time window of every env, so
+every rank holds its share of it); the advantages are normalized over the
+global minibatch, the gradient is all-reduced before the clip, and the
+metrics are combined over the ranks.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core, philox, vector
 from rein48_tpu_torch.engine.core import RewardMode
 from rein48_tpu_torch.models import nets
+from rein48_tpu_torch.parallel import mesh as mesh_lib
+from rein48_tpu_torch.parallel import spmd
 from rein48_tpu_torch.train import a3c, common
 
 
@@ -142,9 +151,18 @@ class PPOStep:
 
     Raises JAX's ``ValueError`` when ``num_minibatches`` does not divide
     ``unroll_len * batch_size``, or ``unroll_len`` under ``shard_friendly_perm``.
+    With a ``mesh`` the state holds this rank's slice of the games, and
+    injected draws are the rank's rows.
     """
 
-    def __init__(self, config: PPOConfig, model: nn.Module, optimizer: common.Optimizer, after_model: nn.Module | None = None):
+    def __init__(
+        self,
+        config: PPOConfig,
+        model: nn.Module,
+        optimizer: common.Optimizer,
+        after_model: nn.Module | None = None,
+        mesh=None,
+    ):
         T, B, M = config.unroll_len, config.batch_size, config.num_minibatches
         if (T * B) % M:
             raise ValueError(f"unroll_len*batch_size={T * B} not divisible by {M}")
@@ -152,7 +170,10 @@ class PPOStep:
             raise ValueError(f"shard_friendly_perm needs unroll_len={T} divisible by num_minibatches={M}")
         if config.afterstate_critic != (after_model is not None):
             raise ValueError("afterstate_critic needs after_model, and only then")
+        if mesh is not None and mesh.dp > 1 and not config.shard_friendly_perm:
+            raise ValueError("a mesh needs shard_friendly_perm: a permutation of all samples would move them between ranks")
         self.config, self.model, self.optimizer, self.after_model = config, model, optimizer, after_model
+        self.rows, self.batch, self.group = mesh_lib.data_shard(mesh, B)
         self.policy = a3c.policy_fn(model, config.obs_encoding)
         self.after_value = None if after_model is None else a3c.policy_fn(after_model, config.obs_encoding)
         self.loss_cfg = ppo_agent.PPOLossConfig(
@@ -177,7 +198,7 @@ class PPOStep:
         cfg = self.config
         shape = (cfg.unroll_len, cfg.batch_size, nets.NUM_ACTIONS)
         if noise is None:
-            noise = philox.learner_gumbel(state.seed, state.update_step, shape, device=state.env.boards.device)
+            noise = philox.learner_gumbel(state.seed, state.update_step, shape, device=state.env.boards.device)[:, self.rows]
         critic = cfg.afterstate_critic
         env, traj, bootstrap, metrics = a3c.rollout_policy(cfg, self.policy, state.env, noise, bits=bits, after_boards=critic)
         advantages, returns = ppo_agent.gae(
@@ -191,17 +212,19 @@ class PPOStep:
         return env, batch, metrics
 
     def permutations(self, state: PPOTrainState, device) -> torch.Tensor:
-        """The update's shuffles, one per epoch (``common.shuffles``)."""
+        """The update's shuffles, one per epoch (``common.shuffles``); on a
+        mesh the rank's envs of them."""
         cfg = self.config
-        return common.shuffles(
+        perms = common.shuffles(
             state.seed, state.update_step, cfg.num_epochs, cfg.unroll_len, cfg.batch_size, cfg.shard_friendly_perm, device
         )
+        return perms[..., self.rows]
 
     def minibatches(self, batch: Dict[str, torch.Tensor], perm: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Each ``[T, B, ...]`` entry shuffled by ``perm`` and cut into
         ``[M, T * B / M, ...]``: under ``shard_friendly_perm`` minibatch ``m``
         holds time slots ``m*T/M .. (m+1)*T/M`` of every env."""
-        T, B, M = self.config.unroll_len, self.config.batch_size, self.config.num_minibatches
+        T, B, M = self.config.unroll_len, self.batch, self.config.num_minibatches
         out = {}
         for k, x in batch.items():
             if self.config.shard_friendly_perm:
@@ -217,7 +240,7 @@ class PPOStep:
         logits = a3c_agent.masked_logits(logits, mb["legal_mask"])
         adv = mb["advantages"]
         if self.config.normalize_advantage:
-            adv = a3c_agent.normalize(adv)
+            adv = a3c_agent.normalize(adv, self.group)
         loss, aux = ppo_agent.ppo_loss(
             logits, values, mb["actions"], mb["behavior_logp"], mb["behavior_value"], adv, mb["returns"], loss_cfg
         )
@@ -246,9 +269,9 @@ class PPOStep:
             aux = []
             for m in range(self.config.num_minibatches):
                 loss, a = self.minibatch_loss({k: v[m] for k, v in mbs.items()}, loss_cfg)
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = self.optimizer.reduce(torch.autograd.grad(loss, params, allow_unused=True))
                 a = {k: v.detach() for k, v in a.items()}
-                a["grad_norm"] = common.tree_norm(grads)
+                a["grad_norm"] = self.optimizer.global_norm(grads)
                 self.optimizer.step(grads)
                 aux.append(a)
         metrics = {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]}
@@ -258,15 +281,17 @@ class PPOStep:
     def __call__(self, state: PPOTrainState, *, bits=None, noise=None, perms=None):
         env, batch, rollout_metrics = self.rollout(state, bits=bits, noise=noise)
         metrics = self.learn(state, batch, perms=perms)
-        metrics.update(rollout_metrics, env_steps=float(self.config.unroll_len * self.config.batch_size))
+        metrics.update(rollout_metrics)
+        metrics = spmd.reduce_metrics(metrics, self.group, sums=common.EPISODE_SUMS, maxes=("best_tile",))
+        metrics["env_steps"] = float(self.config.unroll_len * self.config.batch_size)
         return dataclasses.replace(state, env=env, update_step=state.update_step + 1), metrics
 
 
 def make_ppo_step(
-    config: PPOConfig, model: nn.Module, optimizer: common.Optimizer, after_model: nn.Module | None = None
+    config: PPOConfig, model: nn.Module, optimizer: common.Optimizer, after_model: nn.Module | None = None, mesh=None
 ) -> PPOStep:
     """Build the update: rollout -> GAE -> epochs x minibatches."""
-    return PPOStep(config, model, optimizer, after_model)
+    return PPOStep(config, model, optimizer, after_model, mesh)
 
 
 def train_ppo(
@@ -288,9 +313,9 @@ def train_ppo(
     at the logging points that ``save_every`` divides.
     ``warm_start_policy`` (a ``state_dict`` of the policy net) seeds the
     policy when nothing is resumed; the afterstate critic starts fresh.
+
+    ``mesh``: as in ``train_a3c``; both nets are placed on it.
     """
-    if mesh is not None:
-        raise NotImplementedError("train_ppo(mesh=...) is not yet ported to rein48_tpu_torch")
     device = resolve_device(device)
     state, model, optimizer = init_ppo(config, seed, device)
     if checkpointer is not None:
@@ -301,7 +326,9 @@ def train_ppo(
     elif warm_start_policy is not None:
         model.load_state_dict(warm_start_policy)
         print("warm-started policy params", flush=True)
-    step = make_ppo_step(config, model, optimizer, state.after_model)
+    learners = (model,) if state.after_model is None else (model, state.after_model)
+    state = common.place_on_mesh(mesh, state, optimizer, *learners, checkpointer=checkpointer)
+    step = make_ppo_step(config, model, optimizer, state.after_model, mesh)
 
     history = []
     base = state.update_step
@@ -327,9 +354,6 @@ def train_ppo(
                 "best_tile": m["best_tile"],
                 "steps_per_sec": (i + 1) * config.batch_size * config.unroll_len / (time.perf_counter() - t0),
             }
+            common.log_and_save(record, logger, checkpointer, base + i + 1, state, mesh)
             history.append(record)
-            if logger is not None:
-                logger.write(record)
-            if checkpointer is not None:
-                checkpointer.maybe_save(base + i + 1, state)
     return state, history

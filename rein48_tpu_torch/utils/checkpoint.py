@@ -15,6 +15,12 @@ bit, and the learner's draws are named by the seed and the update step
 (``engine/philox.py``), so a resumed run continues as the uninterrupted one
 would, on any device.
 
+On a mesh (``parallel/``) the state is saved whole: every rank calls
+:meth:`Checkpointer.maybe_save` with a ``gather`` that puts the global state
+together (the env batch and a replay buffer in global order), and rank 0
+writes it. Every rank restores the global state and takes its own slice,
+so a checkpoint of any number of ranks resumes on any other.
+
 A save is written under a temporary name and renamed into place, so a
 crash mid-save never leaves a directory that looks like a step; opening
 the directory sweeps such leftovers, as orbax's
@@ -32,6 +38,7 @@ import tempfile
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from rein48_tpu_torch.train.common import Optimizer
@@ -54,6 +61,11 @@ def _pack(value: Any) -> Any:
     if value is None or isinstance(value, (bool, int, float, str)):
         return value
     raise TypeError(f"cannot checkpoint a {type(value).__name__}")
+
+
+def is_primary() -> bool:
+    """Whether this process writes: the only one, or rank 0 of its group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _unpack(like: Any, saved: Any) -> Any:
@@ -90,7 +102,7 @@ class Checkpointer:
         self.save_every = save_every
         self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
-        for name in os.listdir(self.directory):
+        for name in os.listdir(self.directory) if is_primary() else ():
             if name.endswith(_TMP_SUFFIX):
                 shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
 
@@ -121,11 +133,17 @@ class Checkpointer:
         for old in self.all_steps()[: -self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
 
-    def maybe_save(self, step: int, state: Any) -> bool:
-        if step % self.save_every == 0:
+    def maybe_save(self, step: int, state: Any, gather=None) -> bool:
+        """Save when ``save_every`` divides ``step``. On a mesh every rank
+        calls this with ``gather`` (rank state -> global state, a
+        collective), and only rank 0 writes."""
+        if step % self.save_every:
+            return False
+        if gather is not None:
+            state = gather(state)
+        if is_primary():
             self.save(step, state)
-            return True
-        return False
+        return True
 
     def _load(self, step: Optional[int]) -> Dict[str, Any]:
         step = step if step is not None else self.latest_step()
@@ -160,7 +178,9 @@ class Checkpointer:
         JAX package's format: the dataclass as a dict, enums by name, any
         other value that JSON lacks as its ``str``. Evaluation reads back
         the settings that trained the checkpoint (gamma, reward transform,
-        model, ...)."""
+        model, ...). On a mesh only rank 0 writes."""
+        if not is_primary():
+            return
         if dataclasses.is_dataclass(config):
             config = dataclasses.asdict(config)
 

@@ -48,6 +48,7 @@ from rein48_tpu_torch.train import a3c as a3c_train
 from rein48_tpu_torch.train import common
 
 from test_torch_engine import jax_state
+from torch_dist_ranks import one_rank, without_rate
 
 torch.set_num_threads(1)
 
@@ -479,6 +480,12 @@ class TestA3CLoop:
             assert np.float32(a3c_train.entropy_beta_at(a3c_train.A3CConfig(**anneal), step)) == want
 
     def test_mesh_is_not_yet_ported(self):
+        # Ported (the multi-process cases are in test_torch_distributed.py):
+        # a one-rank mesh trains bit for bit as no mesh does.
         cfg, _ = a3c_configs()
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            a3c_train.train_a3c(cfg, 1, mesh=object(), device="cpu")
+        state, want = a3c_train.train_a3c(cfg, 2, log_every=1, device="cpu")
+        with one_rank() as mesh:
+            got_state, got = a3c_train.train_a3c(cfg, 2, mesh=mesh, log_every=1, device="cpu")
+        assert without_rate(got) == without_rate(want)
+        for k, v in state.model.state_dict().items():
+            assert torch.equal(got_state.model.state_dict()[k], v), k

@@ -46,6 +46,7 @@ from rein48_tpu_torch.train import afterstate, common
 
 from test_torch_engine import jax_state, random_boards
 from test_torch_search_eval import top_two_gap
+from torch_dist_ranks import layout
 
 torch.set_num_threads(1)
 
@@ -457,8 +458,9 @@ class TestTrainingLoop:
 
     def test_unsupported_inputs_raise(self, jax_net):
         cfg, _ = configs()
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            afterstate.train_afterstate_td(cfg, 1, mesh=object(), device="cpu")
+        # mesh= is ported; a mesh of two ranks needs their process group.
+        with pytest.raises(ValueError, match="needs their process group"):
+            afterstate.train_afterstate_td(cfg, 1, mesh=layout(2), device="cpu")
         bad, jbad = configs(unroll_len=6, num_minibatches=4)
         state, model, opt = afterstate.init_afterstate_td(bad, 0, device="cpu")
         with pytest.raises(ValueError, match="divisible by num_minibatches"):

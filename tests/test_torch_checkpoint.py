@@ -25,7 +25,7 @@ from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine.core import RewardMode
 from rein48_tpu_torch.models import nets
 from rein48_tpu_torch.engine import philox
-from rein48_tpu_torch.train import a3c, afterstate, evaluate, ppo
+from rein48_tpu_torch.train import a3c, afterstate, dqn, evaluate, ppo
 from rein48_tpu_torch.train import ntuple as nt
 from rein48_tpu_torch.utils import flops
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
@@ -315,12 +315,27 @@ class TestTrainEvalCommands:
         fresh = nets.make_model("cnn", generator=torch.Generator().manual_seed(0))
         assert json.loads(out.strip().splitlines()[-1]) == evaluate.evaluate_policy(fresh, num_envs=4, num_steps=8, device="cpu")
 
-    # Multi-device training is the one part of the CLI not yet ported.
+    # --mesh is ported: the trainer gets a one-rank mesh outside torchrun,
+    # and the group is left after the run; DDPG takes none, as in JAX.
     @pytest.mark.parametrize("argv", [["train", "--algo", "dqn", "--mesh"], ["train", "--algo", "ddpg", "--mesh"],
                                       ["train", "--algo", "ppo", "--mesh"], ["train", "--algo", "a3c", "--mesh"]])
-    def test_unported_commands_say_so(self, argv):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            cli.main(argv + ["--device", "cpu"])
+    def test_unported_commands_say_so(self, argv, monkeypatch):
+        if argv[2] == "ddpg":
+            with pytest.raises(SystemExit, match="takes no --mesh"):
+                cli.main(argv + ["--device", "cpu"])
+            return
+        module = {"dqn": dqn, "ppo": ppo, "a3c": a3c}[argv[2]]
+        seen = {}
+
+        def train(config, mesh=None, **kw):
+            seen["shape"] = mesh.shape
+            return None, []
+
+        monkeypatch.setattr(module, f"train_{argv[2]}", train)
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            assert cli.main(argv + ["--device", "cpu"]) == 0
+        assert seen["shape"] == {"dp": 1, "tp": 1} and "backend gloo" in err.getvalue()
+        assert not torch.distributed.is_initialized()
 
     def test_ntuple_train_then_eval(self, tmp_path, monkeypatch):
         real = nt.NTupleTrainConfig

@@ -26,6 +26,8 @@ from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
+import torch_dist_ranks as ranks
+
 pytestmark = pytest.mark.cuda
 
 STAT_FIELDS = ("episodes", "episode_length_sum", "episode_score_sum", "max_exponent")
@@ -56,6 +58,20 @@ def test_rollout_kernel_matches_plain(cuda, batch, steps):
     assert_same(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
     assert_same(fused.rollout_random_fused(state, 4, steps), want)
     assert fused.launches == before + 2
+
+
+def test_rollout_kernel_slice_draws_the_global_streams(cuda):
+    # A rank's share of a batch (envs 300..699) rolls as those envs of the whole.
+    whole = vector.reset_batch(2, 1000, cuda)
+    want_state, want_stats = fused.rollout_random_fused(whole, 9, 37)
+    rows = slice(300, 700)
+    part = dataclasses.replace(whole, **{f.name: getattr(whole, f.name)[rows] for f in dataclasses.fields(whole)})
+    got = fused.rollout_random_fused(part, 9, 37, env_base=300)
+    assert_same(got, fused.rollout_random_reference(part, 9, 37, env_base=300))
+    for name in ("boards", "score", "steps"):
+        assert torch.equal(getattr(got[0], name), getattr(want_state, name)[rows]), name
+    for name in STAT_FIELDS:
+        assert torch.equal(getattr(got[1], name), getattr(want_stats, name)[rows]), name
 
 
 def test_rollout_kernel_rejects_bad_words(cuda):
@@ -589,3 +605,18 @@ def test_native_oracle_builds_and_plays_a_game(cuda):
     assert native.available(), "no C compiler built the oracle"
     game = native.NativeOracleGame(5)
     assert 0 < game.play_random() < 1 << 30 and game.spawn_count > 1
+
+
+@pytest.mark.parametrize("backend, world", [("gloo", 2), ("nccl", 1)])
+def test_data_parallel_update_on_card(cuda, tmp_path, monkeypatch, backend, world):
+    """Two A3C updates of two gloo ranks sharing the card (CUDA tensors), and
+    of a one-rank NCCL group, against one process on the card."""
+    monkeypatch.setattr(ranks, "DEVICE", "cuda")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    ref = ranks.a3c_update(None)
+    results = ranks.spawn(tmp_path, {"a3c": ("a3c_update", ranks.A3C_CFG)}, world=world, device="cuda", backend=backend)
+    got = [r["a3c"] for r in results]
+    ranks.check_family(got, ref, chosen_dim=1)
+    if world == 1:  # one rank divides by one: the same bits
+        for k, v in ref["params"][0].items():
+            assert torch.equal(got[0]["params"][0][k], v), k

@@ -24,6 +24,7 @@ after 3 updates rtol 1e-5 with SGD, and with Adam the moment-sign bound of
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import io
@@ -55,6 +56,7 @@ from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
 from test_torch_a3c import assert_params_match, t, to_numpy
 from test_torch_engine import random_boards
+from torch_dist_ranks import one_rank, without_rate
 
 torch.set_num_threads(1)
 
@@ -500,8 +502,14 @@ def test_dqn_config_json_and_presets_equal_jax():
         else:
             assert dump(got) == dump(want), name
     assert isinstance(configs.dqn_4k().make_model(), nets.QNetwork)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        dqn_train.train_dqn(dqn_configs()[0], 1, mesh=object(), device="cpu")
+    # mesh= is ported: a one-rank mesh trains bit for bit as no mesh does.
+    cfg = dqn_configs()[0]
+    state, want = dqn_train.train_dqn(cfg, 3, log_every=1, device="cpu")
+    with one_rank() as mesh:
+        got_state, got = dqn_train.train_dqn(cfg, 3, mesh=mesh, log_every=1, device="cpu")
+    assert without_rate(got) == without_rate(want)
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(got_state.model.state_dict()[k], v), k
 
 
 def test_dqn_flops_per_frame_follows_the_mfu_report():
@@ -535,8 +543,15 @@ def test_cli_train_and_eval_dqn(tmp_path):
     assert rc == 0 and set(json.loads(out)) >= {"episodes"}
     args, jargs = cli.build_parser().parse_args(["train"]), jcli.build_parser().parse_args(["train"])
     assert (args.algo, args.model, args.batch_size, args.lr) == (jargs.algo, jargs.model, jargs.batch_size, jargs.lr)
-    with pytest.raises(SystemExit, match="--mesh is not yet ported"):
-        cli.main(["train", "--algo", "dqn", "--mesh", "--device", "cpu"])
+    # --mesh without torchrun: one rank, the same records.
+    argv = ["train", "--algo", "dqn", "--model", "mlp", "--batch-size", "16", "--updates", "2", "--log-every", "1",
+            "--device", "cpu"]
+    finals = []
+    for extra in ([], ["--mesh"]):
+        rc, _, err = _cli(cli.main, argv + extra)
+        assert rc == 0
+        finals.append(without_rate([ast.literal_eval(err.split("final: ")[-1])]))
+    assert "mesh: Mesh(dp=1, tp=1, rank=0), backend gloo" in err and finals[0] == finals[1]
 
 
 def test_plot_renders_a_png(tmp_path):

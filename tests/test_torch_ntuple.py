@@ -48,6 +48,7 @@ from rein48_tpu_torch.train import ntuple as train
 
 from test_torch_engine import jax_state, random_boards
 from test_torch_search_eval import top_two_gap
+from torch_dist_ranks import one_rank, without_rate
 
 torch.set_num_threads(1)
 
@@ -438,8 +439,12 @@ class TestTrainer:
             "best_tile", "td_abs_err", "steps_per_sec",
         }
         assert state.update_step == 3
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            train.train_ntuple(cfg, num_updates=1, device="cpu", mesh=object())
+        # A one-rank mesh trains bit for bit as no mesh does.
+        with one_rank() as mesh:
+            got_state, got = train.train_ntuple(cfg, num_updates=3, log_every=2, device="cpu", mesh=mesh)
+        assert without_rate(got) == without_rate(history)
+        for k, v in state.params.items():
+            assert torch.equal(got_state.params[k], v), k
 
 
 class TestEvaluate:
@@ -545,10 +550,15 @@ class TestNtupleCli:
         assert "update=3" in out and err.startswith("final: {'update': 3")
 
     def test_unported_train_flags_say_so(self):
-        base = ["train", "--algo", "ntuple", "--device", "cpu", "--updates", "1"]
-        for argv in (base + ["--mesh"], ["train", "--algo", "dqn", "--mesh"], ["train", "--algo", "ddpg", "--mesh"]):
-            with pytest.raises(SystemExit, match="not yet ported"):
-                cli.main(argv)
+        # --mesh is ported: DDPG takes none (as in JAX), and without a card
+        # a mesh run needs --device cpu like every entry point; the group it
+        # joined is left either way.
+        with pytest.raises(SystemExit, match="takes no --mesh"):
+            cli.main(["train", "--algo", "ddpg", "--mesh"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli.main(["train", "--algo", "dqn", "--mesh"])
+        assert not torch.distributed.is_initialized()
         with pytest.raises(SystemExit, match="needs --checkpoint-dir"):
             cli.main(["eval", "--algo", "ntuple", "--device", "cpu"])
         with pytest.raises(SystemExit):

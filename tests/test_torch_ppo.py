@@ -37,6 +37,8 @@ from rein48_tpu_torch.engine import philox
 from rein48_tpu_torch.models import convert
 from rein48_tpu_torch.train import ppo as ppo_train
 
+from torch_dist_ranks import layout
+
 from test_torch_a3c import GAP_TOL, JaxActing, assert_params_match, check_rollout, jax_beta, t, to_numpy
 from test_torch_engine import jax_state
 
@@ -323,8 +325,9 @@ class TestPPOLoop:
 
     def test_unsupported_inputs_raise(self):
         cfg, jcfg = ppo_configs(unroll_len=4, num_minibatches=3, batch_size=6)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ppo_train.train_ppo(cfg, 1, mesh=object(), device="cpu")
+        # mesh= is ported; a mesh of two ranks needs their process group.
+        with pytest.raises(ValueError, match="needs their process group"):
+            ppo_train.train_ppo(dataclasses.replace(cfg, num_minibatches=2), 1, mesh=layout(2), device="cpu")
         state, model, opt = ppo_train.init_ppo(cfg, 0, device="cpu")
         with pytest.raises(ValueError, match="divisible by num_minibatches"):
             ppo_train.make_ppo_step(cfg, model, opt)

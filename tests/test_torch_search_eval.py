@@ -251,12 +251,25 @@ class TestTorchCli:
         out = self._run(["eval", "--algo", "search", "--depth", "1", "--num-envs", "4", "--max-steps", "6", "--device", "cpu"])
         assert out["episodes"] >= 0 and "frac_2048" in out
 
-    def test_unported_commands_say_so(self, tmp_path):
+    def test_unported_commands_say_so(self, tmp_path, monkeypatch):
         search = ["eval", "--algo", "search", "--device", "cpu"]
-        # Multi-device training is the one part of the CLI not yet ported.
-        for argv in (["train", "--algo", "dqn", "--mesh"], ["train", "--algo", "afterstate", "--mesh", "--device", "cpu"]):
-            with pytest.raises(SystemExit, match="not yet ported"):
-                cli.main(argv)
+        # --mesh is ported: without a card it needs --device cpu, and with it
+        # the trainer gets a one-rank mesh; the group is left either way.
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            with contextlib.redirect_stderr(io.StringIO()):
+                cli.main(["train", "--algo", "dqn", "--mesh"])
+        from rein48_tpu_torch.train import afterstate
+
+        meshes = []
+
+        def train(config, mesh=None, **kw):
+            meshes.append(mesh)
+            return None, []
+
+        monkeypatch.setattr(afterstate, "train_afterstate_td", train)
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert cli.main(["train", "--algo", "afterstate", "--mesh", "--device", "cpu"]) == 0
+        assert [m.shape for m in meshes] == [{"dp": 1, "tp": 1}] and not torch.distributed.is_initialized()
         # The critic's settings need a checkpoint: the heuristic leaf has no units.
         for flags in (["--gamma", "0.9"], ["--model", "resnet"]):
             with pytest.raises(SystemExit, match="needs --checkpoint-dir"):
