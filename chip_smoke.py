@@ -7,11 +7,12 @@
 
 Builds the CUDA kernels from ``rein48_tpu_torch/csrc`` with ``nvcc``, holds
 each kernel against its plain PyTorch version at the shapes its main path
-gives it, times an empty kernel as the card's launch floor, drives the
-port's main paths through their entry points (the
-``bench`` rollout, full-width ResNet depth-0/depth-1 ``evaluate_search``,
-the ``SJ_2X4`` n-tuple trainer ``train_ntuple`` in both update modes with
-its depth-0/depth-1 ``evaluate_ntuple``, the ``YEH_4X6`` trainer on the
+gives it (the rollout kernel also on crafted edge boards), times an empty
+kernel as the card's launch floor, drives the port's main paths through
+their entry points (the ``bench`` rollout, full-width ResNet
+depth-0/depth-1 ``evaluate_search``, the ``SJ_2X4`` n-tuple trainer
+``train_ntuple`` in both update modes with its depth-0/depth-1
+``evaluate_ntuple``, the ``YEH_4X6`` trainer on the
 ``"cached"`` hot-prefix backend in both update modes with its depth-0
 ``evaluate_ntuple`` (the n-tuple values of both through the fused value
 kernel, which is held against its plain version and timed beside the
@@ -80,6 +81,12 @@ HBM_BYTES_PER_S = 3.35e12
 # SASS opcodes counted on the INT32 pipe. IMAD, VIADD and the like may run
 # on the FMA pipe, so they count toward the issue bound only.
 INT32_PIPE_OPS = {"IADD3", "LOP3", "ISETP", "SEL", "SHF", "PRMT", "IMNMX", "LEA", "PLOP3", "FLO", "POPC"}
+# The work of one env-step of the rollout that any design must do: the 5
+# Philox words the stream contract fixes (engine/philox.py), 1.25
+# Philox4x32-10 blocks of 10 rounds, each round 2 widening multiplies and 2
+# three-input XORs: 1.25 x 10 x 4 = 50 instructions. The move itself is one
+# table read per row (engine/lut.py) and is not counted.
+PHILOX_INSTR_PER_STEP = 1.25 * 10 * (2 + 2)
 # Depth-1 q-values of the bf16 net on the card against the float32 net on
 # the CPU: a leaf value in [0.4, 1.4] rounds to 2**-7 steps in bf16 and the
 # tower rounds ~10 times; the leaf error measured 0.012 and the q error
@@ -229,6 +236,32 @@ def sass_per_step(lib, kernel: str, steps_per_iteration: int) -> tuple[float, fl
         path.append(prev[path[-1]])
     pipe = sum(ins[i][2] in INT32_PIPE_OPS for i in path)
     return len(path) / steps_per_iteration, pipe / steps_per_iteration
+
+
+def edge_phase(dev) -> int:
+    """``[kernel-vs-plain/edge]``: the rollout kernel against its plain
+    version at B=65536 on ``testing.edge_boards`` (merges at the exponent cap,
+    dead boards, one legal direction, one blank left, rows of equal tiles),
+    in both modes, bit for bit. Returns the largest difference."""
+    from rein48_tpu_torch import testing
+    from rein48_tpu_torch.engine import fused, philox, vector
+
+    n, steps = 65536, 64
+    rng = np.random.default_rng(SEED + 8)
+    state = vector.reset_batch(SEED + 8, n, dev)
+    state.boards = torch.from_numpy(testing.edge_boards(n, SEED + 8)).to(dev)
+    state.score = torch.from_numpy(rng.integers(0, 2**20, n).astype(np.float32)).to(dev)
+    state.steps = torch.from_numpy(rng.integers(0, 1000, n).astype(np.int32)).to(dev)
+    bits = philox.philox_bits(SEED + 9, steps, n, device=dev)
+    want = fused.rollout_bits_reference(state, bits)
+    err = max(rollout_max_err(fused.rollout_random_fused(state, 0, steps, bits=bits), want),
+              rollout_max_err(fused.rollout_random_fused(state, SEED + 9, steps), want))
+    first, _ = fused.rollout_bits_reference(state, bits[:1])
+    log("kernel-vs-plain/edge", B=n, T=steps, max_abs_err=err, episodes=int(want[1].episodes.sum()),
+        reset_on_first_step=int((first.steps == 0).sum()), max_exponent=int(want[1].max_exponent.max()))
+    if err:
+        raise AssertionError("rollout kernel differs from its plain version on the edge boards")
+    return err
 
 
 def timed(fn, reps: int = 50, kernel: str | None = None) -> dict:
@@ -2461,6 +2494,7 @@ def main() -> int:
     log("kernel-vs-plain/philox", B=B3, T=T3, max_abs_err=err_philox)
     if err_philox:
         raise AssertionError("rollout kernel (Philox) differs from its plain version")
+    err_edge = edge_phase(dev)
     torch.cuda.synchronize()
 
     # The host-bound A3C parity regime before any other phase (read again
@@ -2477,6 +2511,8 @@ def main() -> int:
         steps_per_s=bench["value"], median_steps_per_s=bench["median"],
         ms_per_launch=bench["ms_per_launch"], launches=fused.launches,
     )
+    if fused.launches != BENCH_ROUNDS + 1:  # a warm-up and one launch per round
+        raise AssertionError(f"bench launched {fused.launches} rollout kernels, not {BENCH_ROUNDS + 1}")
     plain_bench = run_cli(["bench", "--engine", "plain", "--batch", str(BENCH_B), "--unroll", "64", "--rounds", "2"])
     log("bench/plain-engine", B=BENCH_B, T=64, steps_per_s=plain_bench["value"], ms_per_round=plain_bench["ms_per_launch"])
 
@@ -2546,7 +2582,8 @@ def main() -> int:
 
     lap("bench, ResNet serving")
     # 6. The kernel at the bench shape: bit-equal to its plain version there,
-    # its time, the plain version's, and the bound from its own SASS.
+    # its time, the plain version's, its bound from the work of an env-step,
+    # and this design's own instruction counts.
     state = vector.reset_batch(SEED + 4, BENCH_B, dev)
     saved = fused.launches
     got = fused.rollout_random_fused(state, 2, BENCH_T)  # also the warm-up
@@ -2558,17 +2595,24 @@ def main() -> int:
     log("kernel-vs-plain/philox", B=BENCH_B, T=BENCH_T, max_abs_err=err_bench, episodes=int(plain[0][1].episodes.sum()))
     if err_bench:
         raise AssertionError("rollout kernel (Philox) differs from its plain version at the bench shape")
+    # This design's own figures, for the [kernel-bound] line only: SASS per
+    # env-step of its main loop and the times they would take at the issue
+    # rate and on the INT32 pipe (computed, not measured).
     per_step, per_step_int32 = sass_per_step(build.library_path("rollout"), "rollout_kernelILb0E", 4)
     env_steps = BENCH_B * BENCH_T
-    bound_issue_ms = 1e3 * per_step * env_steps / ISSUE_PER_S
-    bound_int32_ms = 1e3 * per_step_int32 * env_steps / INT32_PIPE_PER_S
-    bound_ops_ms = max(bound_issue_ms, bound_int32_ms)
+    design_issue_ms = 1e3 * per_step * env_steps / ISSUE_PER_S
+    design_int32_ms = 1e3 * per_step_int32 * env_steps / INT32_PIPE_PER_S
     log(
-        "kernel-bound", sass_per_env_step=per_step, int32_pipe_per_env_step=per_step_int32,
-        issue_bound_ms=round(bound_issue_ms, 4), int32_pipe_bound_ms=round(bound_int32_ms, 4),
+        "kernel-bound", design_sass_per_env_step=per_step, design_int32_pipe_per_env_step=per_step_int32,
+        design_issue_ms=round(design_issue_ms, 4), design_int32_pipe_ms=round(design_int32_ms, 4),
+        philox_instr_per_env_step=PHILOX_INSTR_PER_STEP,
     )
-    # Each board (16 B), score, steps read once; board, score, steps and 4 stats written once.
-    bound_bytes_ms = 1e3 * BENCH_B * (16 + 8 + 16 + 8 + 16) / HBM_BYTES_PER_S
+    # The bound is the work, not this design: the Philox words at the issue
+    # rate, or the bytes (each board (16 B), score and steps read once, the
+    # row table (196,864 B) read once; board, score, steps and 4 stats
+    # written once), whichever is larger.
+    bound_ops_ms = 1e3 * env_steps * PHILOX_INSTR_PER_STEP / ISSUE_PER_S
+    bound_bytes_ms = 1e3 * (BENCH_B * (16 + 8 + 16 + 8 + 16) + fused.row_table_bytes().size) / HBM_BYTES_PER_S
     kernels = [
         {
             "name": "rollout",
@@ -2576,12 +2620,13 @@ def main() -> int:
             "source": "rein48_tpu_torch/csrc/rollout.cu",
             "replaces": "rein48_tpu/engine/fused.py:269",
             "launches": launches,
-            "equal": err_bits == 0 and err_philox == 0 and err_bench == 0,
-            "max_abs_err": max(err_bits, err_philox, err_bench),
+            "equal": err_bits == 0 and err_philox == 0 and err_edge == 0 and err_bench == 0,
+            "max_abs_err": max(err_bits, err_philox, err_edge, err_bench),
             "ms": round(ms, 4),
             "plain_ms": round(plain_ms, 1),
             "bound_ms": round(max(bound_ops_ms, bound_bytes_ms), 4),
             "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+            "bound_of": f"the Philox words: {PHILOX_INSTR_PER_STEP:g} instructions per env-step at the issue rate",
             "sass_per_env_step": per_step,
             "int32_pipe_per_env_step": per_step_int32,
             "library_ms": None,

@@ -6,9 +6,11 @@ Port of ``rein48_tpu/engine/fused.py``, whose Pallas kernel
 (``_rollout_kernel``) keeps a block of boards in VMEM for the whole
 rollout and draws its randomness from the TPU's hardware PRNG. Here the
 kernel is ``csrc/rollout.cu``: one thread owns one env for the whole
-rollout, its board in registers, its random words from Philox4x32-10
-computed in registers (``engine/philox.py`` gives the layout). Device
-memory is read once at entry and written once at exit.
+rollout, its board packed in one 64-bit word in registers, its moves
+looked up in the row-merge table of ``engine/lut.py`` held in shared
+memory (:func:`row_tables`), its random words from Philox4x32-10 computed
+in registers (``engine/philox.py`` gives the layout). Device memory is
+read once at entry and written once at exit.
 
 :func:`rollout_random_fused` is the wrapper. A CUDA state launches the
 kernel; a CPU state runs the plain version (:func:`rollout_bits_reference`
@@ -29,11 +31,14 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import weakref
 from typing import Sequence
 
+import numpy as np
 import torch
 
-from rein48_tpu_torch.engine import core, philox
+from rein48_tpu_torch.engine import core, lut, philox
 from rein48_tpu_torch.engine.core import EnvState
 
 NUM_CELLS = 16
@@ -215,7 +220,44 @@ def rollout_random_reference(state: EnvState, seed: int, num_steps: int, env_bas
     return _rollout_plain(state, chunks)
 
 
-_ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 8 + [
+@functools.lru_cache(maxsize=1)
+def row_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's form of ``lut.build_row_lut()``: ``(codes, offsets, quarters)``.
+
+    ``codes`` is ``uint16[65536]``, each row's merged code; ``quarters`` is
+    ``uint16[128]``, the distinct merge scores / 4 in increasing order, then
+    zeros; ``offsets`` is ``uint8[65536]``, the byte offset in ``quarters``
+    of each row's score (2 x its position). Row ``r``'s packed entry is
+    ``codes[r] | quarters[offsets[r] // 2] << 16``.
+    """
+    packed = lut.build_row_lut()
+    values, position = np.unique(packed >> 16, return_inverse=True)
+    if len(values) > 128:
+        raise AssertionError(f"{len(values)} distinct row scores do not fit a one-byte offset")
+    quarters = np.zeros(128, np.uint16)
+    quarters[: len(values)] = values
+    return lut.lut_new_code(packed).astype(np.uint16), (2 * position).astype(np.uint8), quarters
+
+
+def row_table_bytes() -> np.ndarray:
+    """:func:`row_tables` as the kernel reads them, little-endian and back
+    to back: codes, offsets, quarters (``uint8[196864]``)."""
+    codes, offsets, quarters = row_tables()
+    return np.concatenate([codes.astype("<u2").view(np.uint8), offsets, quarters.astype("<u2").view(np.uint8)])
+
+
+# The row table on each device, uploaded once.
+_device_tables: dict[torch.device, torch.Tensor] = {}
+
+
+def _device_table(dev: torch.device) -> torch.Tensor:
+    table = _device_tables.get(dev)
+    if table is None:
+        table = _device_tables[dev] = torch.from_numpy(row_table_bytes()).to(dev)
+    return table
+
+
+_ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 9 + [
     ctypes.c_longlong,
     ctypes.c_int,
     ctypes.c_ulonglong,
@@ -260,6 +302,7 @@ def _launch(state: EnvState, seed: int, num_steps: int, bits, env_base: int):
     score_out = torch.empty(n, dtype=torch.int32, device=dev)
     steps_out = torch.empty(n, dtype=torch.int32, device=dev)
     stats = torch.empty((4, n), dtype=torch.int32, device=dev)
+    table = _device_table(dev)
 
     lib = build.load("rollout")
     fn = lib.rein48_rollout
@@ -270,6 +313,7 @@ def _launch(state: EnvState, seed: int, num_steps: int, bits, env_base: int):
             score.data_ptr(),
             steps.data_ptr(),
             None if words is None else words.data_ptr(),
+            table.data_ptr(),
             boards_out.data_ptr(),
             score_out.data_ptr(),
             steps_out.data_ptr(),
@@ -286,13 +330,51 @@ def _launch(state: EnvState, seed: int, num_steps: int, bits, env_base: int):
     return _result(state, boards_out, score_out, steps_out, stats)
 
 
+# Boards known to be legal, by id: the rollouts' outputs and the inputs
+# already checked, each with its version counter at the time (an in-place
+# edit raises it). Entries go when their tensor does.
+_legal: dict[int, tuple[weakref.ref, int]] = {}
+
+
+def _version(t: torch.Tensor) -> int | None:
+    return None if t.is_inference() else t._version  # inference tensors keep no version
+
+
+def _remember_legal(boards: torch.Tensor) -> None:
+    version = _version(boards)
+    if version is None:
+        return
+    key = id(boards)
+
+    def forget(ref):
+        if _legal.get(key, (None,))[0] is ref:
+            del _legal[key]
+
+    _legal[key] = (weakref.ref(boards, forget), version)
+
+
+def _check_legal(boards: torch.Tensor) -> None:
+    """Raise unless every exponent is at most ``lut.MAX_EXPONENT``: the
+    kernel packs a cell into 4 bits. Boards a rollout returned, unchanged
+    since, are not read again; others cost one reduction (and, on the card,
+    one wait for it)."""
+    known = _legal.get(id(boards))
+    if known is not None and known[0]() is boards and known[1] == _version(boards):
+        return
+    top = int(boards.max()) if boards.numel() else 0
+    if top > lut.MAX_EXPONENT:
+        raise ValueError(f"board exponents must be at most {lut.MAX_EXPONENT}, got {top}")
+    _remember_legal(boards)
+
+
 def rollout_random_fused(
     state: EnvState, seed: int, num_steps: int, bits: torch.Tensor | None = None, env_base: int = 0
 ):
     """Run ``num_steps`` of uniform-random autoreset play over the batch.
 
     Args:
-        state: batched :class:`EnvState` (leading axis B, any B).
+        state: batched :class:`EnvState` (leading axis B, any B), its
+            boards legal: exponents of at most ``lut.MAX_EXPONENT``.
         seed: key of the Philox streams (an int; env ``i`` of the batch
             uses stream ``(seed, env_base + i)`` from step 0).
         num_steps: rollout length T.
@@ -304,12 +386,19 @@ def rollout_random_fused(
 
     Returns:
         ``(final_state, FusedRolloutStats)``.
+
+    Raises:
+        ValueError: a board holds an exponent above ``lut.MAX_EXPONENT``.
     """
     dev = state.boards.device
-    if dev.type == "cuda":
-        return _launch(state, int(seed), num_steps, bits, int(env_base))
-    if dev.type != "cpu":
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no rollout kernel for device {dev}")
-    if bits is not None:
-        return rollout_bits_reference(state, bits)
-    return rollout_random_reference(state, int(seed), num_steps, int(env_base))
+    _check_legal(state.boards)
+    if dev.type == "cuda":
+        out = _launch(state, int(seed), num_steps, bits, int(env_base))
+    elif bits is not None:
+        out = rollout_bits_reference(state, bits)
+    else:
+        out = rollout_random_reference(state, int(seed), num_steps, int(env_base))
+    _remember_legal(out[0].boards)
+    return out

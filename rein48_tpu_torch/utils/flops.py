@@ -13,12 +13,14 @@ board (100 of 144 per channel pair) and adds elementwise work, 7,219,126
 CPU at a small batch.
 
 MFU is model FLOPs per second over the card's peak dense bf16 rate.
+:func:`program_flops` counts any function the same way, the counterpart of
+the JAX package's count of a compiled program.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any
+from typing import Any, Callable
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -32,6 +34,17 @@ from rein48_tpu_torch.train import common
 PEAK_BF16_H100_SXM = 989e12
 
 
+def program_flops(fn: Callable, *args, **kwargs) -> float:
+    """FLOPs of one call of ``fn(*args, **kwargs)``, as ``FlopCounterMode``
+    counts them: matrix products and convolutions at 2 per multiply-add,
+    forward and (if ``fn`` runs one) backward, no elementwise work. It runs
+    ``fn`` once, on whatever device its inputs are."""
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn(*args, **kwargs)
+    return float(counter.get_total_flops())
+
+
 def model_forward_flops(model: Any, obs_encoding: str = "onehot", batch: int = 8) -> float:
     """Per-board forward FLOPs of a ``models/nets.py`` module.
 
@@ -41,10 +54,8 @@ def model_forward_flops(model: Any, obs_encoding: str = "onehot", batch: int = 8
     """
     cpu_model = copy.deepcopy(model).to("cpu")
     obs = common.encode_obs(torch.zeros((batch, core.BOARD_SIZE, core.BOARD_SIZE), dtype=torch.uint8), obs_encoding)
-    counter = FlopCounterMode(display=False)
-    with counter, torch.no_grad():
-        cpu_model(obs)
-    return counter.get_total_flops() / batch
+    with torch.no_grad():
+        return program_flops(cpu_model, obs) / batch
 
 
 def train_flops_per_frame(

@@ -22,18 +22,114 @@ DQN flagship and of DDPG at its defaults and their acting and learn phases,
     python -m rein48_tpu_torch.utils.profiling [group ...]
 
 and prints one JSON line per path, for the groups named (all by default).
+
+Beside it, the JAX package's hooks: :func:`trace` (a Chrome/Perfetto trace
+of a block of code), :func:`force` (fetch one scalar, which waits for the
+work that produces it), :class:`Throughput` (an env-steps/s meter on
+:func:`force`) and :func:`enable_nan_debugging`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
+from typing import Iterator, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """Trace the block with ``torch.profiler`` (host activity, and the
+    card's when there is one) into ``<log_dir>/trace.json``, a Chrome trace
+    that Perfetto and ``chrome://tracing`` open."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def enable_nan_debugging() -> None:
+    """Turn on autograd's anomaly mode, the closest switch to JAX's
+    ``jax_debug_nans``.
+
+    It differs: JAX checks the output of every primitive, forward and
+    backward, for NaNs and re-runs the offending one un-jitted; anomaly mode
+    checks only the gradients of backward functions, raises on the first
+    NaN there with the traceback of the forward op that made it, and slows
+    every backward pass. A NaN made in a forward pass or outside autograd
+    goes unnoticed until a gradient carries it.
+    """
+    torch.autograd.set_detect_anomaly(True)
+
+
+def _first_tensor(x) -> Optional[torch.Tensor]:
+    """The first tensor leaf of a pytree of dicts, sequences and dataclasses."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, dict):
+        children = x.values()
+    elif isinstance(x, (list, tuple)):
+        children = x
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        children = (getattr(x, f.name) for f in dataclasses.fields(x))
+    else:
+        return None
+    for child in children:
+        leaf = _first_tensor(child)
+        if leaf is not None:
+            return leaf
+    return None
+
+
+def force(x) -> float:
+    """Fetch one scalar from the first tensor leaf of a pytree, which waits
+    for the work that produces it."""
+    leaf = _first_tensor(x)
+    if leaf is None:
+        raise ValueError("no tensor in the pytree")
+    return float(leaf.reshape(-1)[0])
+
+
+class Throughput:
+    """Env-steps/s meter, as the JAX package's.
+
+    >>> meter = Throughput(steps_per_call=B * T)
+    >>> for _ in range(n):
+    ...     state, _ = rollout(state)
+    ...     meter.tick(state)          # forces + accumulates
+    >>> meter.rate()
+
+    The first :meth:`tick` starts the clock (so a first call's build or
+    warm-up is not timed); :meth:`rate` is 0.0 until a second tick.
+    """
+
+    def __init__(self, steps_per_call: int):
+        self.steps_per_call = steps_per_call
+        self._calls = 0
+        self._t0: Optional[float] = None
+
+    def tick(self, state) -> None:
+        force(state)
+        now = time.perf_counter()
+        if self._t0 is None:
+            self._t0 = now
+        else:
+            self._calls += 1
+
+    def rate(self) -> float:
+        if self._t0 is None or self._calls == 0:
+            return 0.0
+        return self._calls * self.steps_per_call / (time.perf_counter() - self._t0)
 
 
 # Host calls that launch one kernel each, by the runtime or the driver API.

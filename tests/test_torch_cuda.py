@@ -22,6 +22,7 @@ from rein48_tpu_torch import Game, native
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
 from rein48_tpu_torch.ops import hbm_tables, tables
+from rein48_tpu_torch.testing import edge_boards
 from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
@@ -74,12 +75,57 @@ def test_rollout_kernel_slice_draws_the_global_streams(cuda):
         assert torch.equal(getattr(got[1], name), getattr(want_stats, name)[rows]), name
 
 
+@pytest.mark.parametrize("steps", [1, 3, 67])
+@pytest.mark.parametrize("batch", [1, 513, 1000])
+def test_rollout_kernel_edge_boards(cuda, batch, steps):
+    # Merges at the exponent cap, dead boards, one legal direction, one
+    # blank left, rows of equal tiles; ragged batches; both modes.
+    g = torch.Generator().manual_seed(batch * 100 + steps)
+    state = vector.reset_batch(3, batch, cuda)
+    state.boards = torch.from_numpy(edge_boards(batch, batch + steps)).to(cuda)
+    state.score = torch.randint(0, 2**20, (batch,), generator=g).to(torch.float32).to(cuda)
+    state.steps = torch.randint(0, 1000, (batch,), generator=g, dtype=torch.int32).to(cuda)
+    bits = philox.philox_bits(5, steps, batch, device=cuda)
+    want = fused.rollout_bits_reference(state, bits)
+    before = fused.launches
+    assert_same(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
+    assert_same(fused.rollout_random_fused(state, 5, steps), want)
+    assert fused.launches == before + 2
+
+
+def test_rollout_kernel_table_is_uploaded_once(cuda):
+    state = vector.reset_batch(1, 64, cuda)
+    fused.rollout_random_fused(state, 1, 4)
+    table = fused._device_table(state.boards.device)
+    fused.rollout_random_fused(state, 2, 4)
+    assert fused._device_table(state.boards.device) is table
+    assert torch.equal(table.cpu(), torch.from_numpy(fused.row_table_bytes()))
+
+
 def test_rollout_kernel_rejects_bad_words(cuda):
     state = vector.reset_batch(1, 256, cuda)
     before = fused.launches
     with pytest.raises(ValueError, match="bits must be"):
         fused.rollout_random_fused(state, 0, 8, bits=philox.philox_bits(0, 7, 256, device=cuda))
     assert fused.launches == before
+
+
+def test_rollout_kernel_refuses_exponent_16(cuda):
+    # The kernel packs a cell into 4 bits; a board with an exponent of 16
+    # never reaches it, whether it came from outside or is a rollout's
+    # output edited in place.
+    state = vector.reset_batch(1, 256, cuda)
+    state.boards = torch.from_numpy(edge_boards(256, 1)).to(cuda)
+    state.boards[7, 2, 3] = 16
+    before = fused.launches
+    with pytest.raises(ValueError, match="at most 15"):
+        fused.rollout_random_fused(state, 0, 8)
+    state.boards[7, 2, 3] = 15
+    out, _ = fused.rollout_random_fused(state, 0, 8)
+    out.boards[0, 0, 0] = 16
+    with pytest.raises(ValueError, match="at most 15"):
+        fused.rollout_random_fused(out, 0, 8)
+    assert fused.launches == before + 1
 
 
 def assert_sums_close(got, want, scale):
