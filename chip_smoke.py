@@ -38,9 +38,11 @@ group bit for bit against the same update without one, two gloo ranks
 sharing the card for the rollout kernel on half the bench batch each, the
 flagship afterstate trainer, the ``SJ_2X4`` n-tuple trainers on the table
 kernels, PPO with the critic, A3C, the DQN flagship's learn gate and the
-A3C MLP over tensor parallelism, each against one process, and ``train
---mesh`` under ``torchrun``; checks what comes out, and prints one line per
-phase. Each path runs
+A3C MLP over tensor parallelism, each against one process, the tp runs'
+checkpoints (the A3C MLP's and the full-width ResNet afterstate
+learner's) resumed in a fresh pair of ranks bit for bit and the A3C one in
+one process, and ``train --mesh`` under ``torchrun``; checks what comes
+out, and prints one line per phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -58,6 +60,7 @@ import dataclasses
 import io
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2004,8 +2007,13 @@ def replay_cli_phase():
 # B=1024 global, T=128, step and delayed/4, and "cached" delayed/4 at 128
 # prefix rows of SJ_2X4's 512, 2 updates each; PPO with the critic, A3C and
 # the DQN flagship's learn gate at 1,024 envs in float32, 1-2 updates; the
-# A3C MLP over dp=1 x tp=2; the CLI under torchrun.
+# A3C MLP over dp=1 x tp=2, saving at each of its 2 updates, and the
+# flagship afterstate learner (ResNet 64x4 bf16) over dp=1 x tp=2 on
+# PAR_CKPT_ENVS envs (gloo's gathers of the sharded layers' features go
+# through the host), 2 updates saving at each; both resumed from update 1 in
+# a fresh pair of ranks; the CLI under torchrun.
 PAR_RANKS = 2
+PAR_CKPT_ENVS = 128
 PAR_AS_UPDATES, PAR_NT_UPDATES = 2, 2
 PAR_FAMILY_ENVS = 1024
 PAR_TIMEOUT_S = 420
@@ -2152,18 +2160,60 @@ def par_ntuple(mesh, dev) -> dict:
     return out
 
 
-def par_families(mesh, dev) -> dict:
+def tp_mesh():
+    from rein48_tpu_torch.parallel import mesh as mesh_lib
+
+    return mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=PAR_RANKS))
+
+
+def timed_checkpointer(directory, save_every: int = 1):
+    """A ``Checkpointer`` that keeps the seconds of each save (on every rank
+    its gather, on rank 0 also the write; ``save_s``), of each save's gather
+    alone (``gather_s``) and of each restore (``restore_s``)."""
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    class Timed(Checkpointer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.save_s, self.gather_s, self.restore_s = [], [], []
+
+        def maybe_save(self, step, state, gather=None):
+            def timed_gather(s):
+                t0 = time.perf_counter()
+                s = gather(s)
+                torch.cuda.synchronize()
+                self.gather_s.append(time.perf_counter() - t0)
+                return s
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            saved = super().maybe_save(step, state, gather=None if gather is None else timed_gather)
+            if saved:
+                self.save_s.append(time.perf_counter() - t0)
+            return saved
+
+        def restore(self, state_like, step=None):
+            t0 = time.perf_counter()
+            state = super().restore(state_like, step)
+            torch.cuda.synchronize()
+            self.restore_s.append(time.perf_counter() - t0)
+            return state
+
+    return Timed(str(directory), save_every=save_every)
+
+
+def par_families(mesh, dev, root=None) -> dict:
     """PPO with the critic and A3C (1 update each), the DQN flagship's learn
     gate (2 updates: cold, then learning), and the A3C MLP over tp (2
-    updates; ``mesh`` a dp=1 x tp=2 mesh there)."""
-    from rein48_tpu_torch.parallel import mesh as mesh_lib
+    updates; ``mesh`` a dp=1 x tp=2 mesh there, saving at each update under
+    ``root``)."""
     from rein48_tpu_torch.train import a3c, dqn, ppo
 
     out = {}
     for name, cfg in _par_family_configs().items():
-        m = mesh
+        m, ckpt = mesh, None
         if name.endswith("/tp") and mesh is not None:
-            m = mesh_lib.make_mesh(mesh_lib.MeshConfig(tp=PAR_RANKS))
+            m, ckpt = tp_mesh(), timed_checkpointer(Path(root) / "a3c-tp")
         if name == "dqn":
             state, history = dqn.train_dqn(cfg, 2, seed=SEED, mesh=m, log_every=1, device=dev)
             extra = {"optimizer_count": state.optimizer.count}
@@ -2171,8 +2221,10 @@ def par_families(mesh, dev) -> dict:
             state, history = ppo.train_ppo(cfg, 1, seed=SEED, mesh=m, log_every=1, device=dev)
             extra = {"after_params": _full_params(state.after_model, m)}
         else:
-            state, history = a3c.train_a3c(cfg, 2 if name.endswith("/tp") else 1, seed=SEED, mesh=m, log_every=1, device=dev)
-            extra = {}
+            state, history = a3c.train_a3c(
+                cfg, 2 if name.endswith("/tp") else 1, seed=SEED, mesh=m, log_every=1, checkpointer=ckpt, device=dev
+            )
+            extra = {} if ckpt is None else {"save_s": ckpt.save_s}
         out[name] = {
             "history": [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in history],
             "params": _full_params(state.model, m), "boards": _host(state.env.boards), **extra,
@@ -2180,12 +2232,74 @@ def par_families(mesh, dev) -> dict:
     return out
 
 
+def tp_afterstate_config():
+    return dataclasses.replace(afterstate_config(), batch_size=PAR_CKPT_ENVS)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside, so that bit-equality of two
+    runs is the checkpoint's to keep."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _learner_bytes(state) -> int:
+    """This rank's bytes of the learner: its slices of the params and the moments."""
+    tensors = [*state.model.parameters(), *(t for ts in state.optimizer.moments.values() for t in ts)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def par_checkpoint_tp(mesh, dev, root) -> dict:
+    """The flagship afterstate learner (ResNet 64x4 bf16) at dp=1 x tp=2 on
+    ``PAR_CKPT_ENVS`` envs, 2 updates saving at each under ``root``, cuDNN
+    deterministic: the records, the seconds of each save and its gather, and
+    this rank's learner bytes."""
+    from rein48_tpu_torch.train import afterstate
+
+    ckpt = timed_checkpointer(Path(root) / "afterstate-tp")
+    with deterministic_cudnn():
+        state, history = afterstate.train_afterstate_td(tp_afterstate_config(), 2, seed=SEED, mesh=tp_mesh(),
+                                                        log_every=1, checkpointer=ckpt, device=dev)
+    return {"history": _no_rate(history), "save_s": ckpt.save_s, "gather_s": ckpt.gather_s,
+            "learner_bytes": _learner_bytes(state)}
+
+
+def par_resume(mesh, dev, root) -> dict:
+    """In a fresh pair of ranks, at dp=1 x tp=2: the A3C MLP and the
+    afterstate learner resumed from their update-1 checkpoints (copied under
+    ``root`` as ``*-resume``) for their second update, which is saved."""
+    from rein48_tpu_torch.train import a3c, afterstate
+
+    out = {}
+    ckpt = timed_checkpointer(Path(root) / "a3c-tp-resume")
+    _, history = a3c.train_a3c(_par_family_configs()["a3c-mlp/tp"], 1, seed=SEED, mesh=tp_mesh(), log_every=1,
+                               checkpointer=ckpt, device=dev)
+    out["a3c-mlp/tp"] = {"history": _no_rate(history), "restore_s": ckpt.restore_s}
+    ckpt = timed_checkpointer(Path(root) / "afterstate-tp-resume")
+    with deterministic_cudnn():
+        _, history = afterstate.train_afterstate_td(tp_afterstate_config(), 1, seed=SEED, mesh=tp_mesh(),
+                                                    log_every=1, checkpointer=ckpt, device=dev)
+    out["afterstate"] = {"history": _no_rate(history), "restore_s": ckpt.restore_s, "save_s": ckpt.save_s}
+    return out
+
+
+def _no_rate(history):
+    return [{k: v for k, v in r.items() if k != "steps_per_sec"} for r in history]
+
+
 PAR_PHASES = ("rollout", "afterstate", "ntuple", "families")
+# Each spawn of a pair of ranks runs these phases; the second is a fresh pair.
+PAR_SPAWNS = (PAR_PHASES + ("checkpoint-tp",), ("resume",))
 
 
-def _par_rank(rank: int, store: str, out: str) -> None:
-    """One rank of the gloo group on the card: every parallel phase, its
-    results saved for the parent; a failure is written beside them."""
+def _par_rank(rank: int, store: str, out: str, names) -> None:
+    """One rank of the gloo group on the card: the parallel phases ``names``,
+    their results saved for the parent in ``out``, checkpoints beside it; a
+    failure is written beside the results."""
     from rein48_tpu_torch.parallel import multihost
 
     dev = torch.device("cuda")
@@ -2193,9 +2307,15 @@ def _par_rank(rank: int, store: str, out: str) -> None:
     try:
         multihost.initialize(f"file://{store}", PAR_RANKS, rank, backend="gloo", device=dev)
         mesh = multihost.global_mesh()
-        phases = {"rollout": par_rollout, "afterstate": par_afterstate, "ntuple": par_ntuple, "families": par_families}
+        root = Path(out).parent
+        phases = {
+            "rollout": par_rollout, "afterstate": par_afterstate, "ntuple": par_ntuple,
+            "families": lambda m, d: par_families(m, d, root),
+            "checkpoint-tp": lambda m, d: par_checkpoint_tp(m, d, root),
+            "resume": lambda m, d: par_resume(m, d, root),
+        }
         results = {}
-        for name in PAR_PHASES:
+        for name in names:
             t0 = time.perf_counter()
             results[name] = phases[name](mesh, dev)
             results[f"{name}_s"] = time.perf_counter() - t0
@@ -2278,12 +2398,56 @@ def _same_across_ranks(results, path) -> bool:
     return True
 
 
-def parallel_phases(dev) -> None:
-    """``[parallel/rollout|afterstate|ntuple|families|tp]``: two gloo ranks
-    on the card (spawned; the kernels are built already), each phase held
-    against the same run in this process without a mesh; then
-    ``[parallel/cli]``."""
+def _spawn_pair(out: Path, names) -> list[dict]:
+    """A fresh pair of gloo ranks on the card (spawned; the kernels are
+    built already) running the parallel phases ``names``: each rank's results."""
     import torch.multiprocessing as mp
+
+    out.mkdir()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_par_rank, args=(r, str(out / "store"), str(out), names)) for r in range(PAR_RANKS)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(PAR_TIMEOUT_S)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [f.read_text() for f in sorted(out.glob("rank*.err"))]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"a rank failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
+
+
+def _copy_step(src: Path, step: int, dst: Path) -> None:
+    """A checkpoint directory holding step ``step`` of ``src`` alone, and its config."""
+    dst.mkdir()
+    shutil.copytree(src / str(step), dst / str(step))
+    shutil.copy(src / "train_config.json", dst)
+
+
+def _saved_equal(a: Path, b: Path, step: int) -> bool:
+    """Two checkpoints of ``step`` hold the same bits, field for field."""
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, list):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        if torch.is_tensor(x):
+            return x.dtype == y.dtype and bool(torch.equal(x, y))
+        return x == y
+
+    load = lambda d: torch.load(d / str(step) / "state.pt", weights_only=True)  # noqa: E731
+    return same(load(a), load(b))
+
+
+def parallel_phases(dev, card: str) -> None:
+    """``[parallel/rollout|afterstate|ntuple|families|tp|checkpoint-tp]``:
+    two gloo ranks on the card, each phase held against the same run in this
+    process without a mesh; the tp runs' update-1 checkpoints resumed in a
+    fresh pair of ranks (and the A3C one here); then ``[parallel/cli]``."""
+    from rein48_tpu_torch.train import a3c
 
     phases = {"rollout": par_rollout, "afterstate": par_afterstate, "ntuple": par_ntuple, "families": par_families}
     t0 = time.perf_counter()
@@ -2292,25 +2456,19 @@ def parallel_phases(dev) -> None:
     ref_again = par_ntuple(None, dev)
     ref_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as out:
-        ctx = mp.get_context("spawn")
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=_par_rank, args=(r, str(Path(out) / "store"), out)) for r in range(PAR_RANKS)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(PAR_TIMEOUT_S)
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        errors = [f.read_text() for f in sorted(Path(out).glob("rank*.err"))]
-        if errors or any(p.exitcode != 0 for p in procs):
-            raise AssertionError(f"a rank failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
-        ranks = [torch.load(Path(out) / f"rank{r}.pt", weights_only=False) for r in range(PAR_RANKS)]
-        ranks_s = time.perf_counter() - t0
+    root_dir = tempfile.TemporaryDirectory()
+    root = Path(root_dir.name)
+    t0 = time.perf_counter()
+    ranks = _spawn_pair(root / "spawn0", PAR_SPAWNS[0])
+    ranks_s = time.perf_counter() - t0
+    for name in ("a3c-tp", "afterstate-tp"):
+        _copy_step(root / name, 1, root / f"{name}-resume")
+    t0 = time.perf_counter()
+    resumed = [r["resume"] for r in _spawn_pair(root / "spawn1", PAR_SPAWNS[1])]
+    resume_s = time.perf_counter() - t0
     log("parallel/spawn", ranks=PAR_RANKS, backend="gloo", one_process_s=round(ref_s, 1), ranks_s=round(ranks_s, 1),
-        rank_phase_s=json.dumps({k: round(ranks[0][f"{k}_s"], 1) for k in PAR_PHASES}))
+        resume_ranks_s=round(resume_s, 1),
+        rank_phase_s=json.dumps({k: round(ranks[0][f"{k}_s"], 1) for k in PAR_SPAWNS[0]}))
 
     # The rollout: boards and summed stats bit for bit.
     got = [r["rollout"] for r in ranks]
@@ -2399,11 +2557,48 @@ def parallel_phases(dev) -> None:
                       params_rel_err=f"{set_rel:.3g}", boards_equal=boards_equal, replicated_equal=replicated)
         if name == "dqn":
             fields["optimizer_count_per_rank"] = [g["optimizer_count"] for g in got]
+        resume_ok = True
+        if name.endswith("/tp"):
+            # Saved at updates 1 and 2; update 1 resumed by a fresh pair of
+            # ranks (bit for bit) and in this process (within the bounds above).
+            again = [r[name] for r in resumed]
+            equal = _saved_equal(root / "a3c-tp", root / "a3c-tp-resume", 2)
+            records = all(a["history"] == got[0]["history"][1:] for a in again)
+            _copy_step(root / "a3c-tp", 1, root / "a3c-tp-here")
+            here_ckpt = timed_checkpointer(root / "a3c-tp-here")
+            here, here_history = a3c.train_a3c(cfg, 1, seed=SEED, log_every=1, checkpointer=here_ckpt, device=dev)
+            here_loss_err = abs(here_history[0]["loss"] - got[0]["history"][1]["loss"]) / abs(got[0]["history"][1]["loss"])
+            here_err = max(float((_host(v) - got[0]["params"][k]).abs().max()) for k, v in here.model.state_dict().items())
+            fields.update(save_s_per_rank=[[round(x, 4) for x in g["save_s"]] for g in got],
+                          resume_restore_s_per_rank=[[round(x, 4) for x in a["restore_s"]] for a in again],
+                          resumed_equal=equal, resumed_records_equal=records,
+                          here_restore_s=round(here_ckpt.restore_s[0], 4), here_loss_rel_err=f"{here_loss_err:.3g}",
+                          here_max_param_err=f"{here_err:.3g}")
+            resume_ok = equal and records and here_loss_err <= 1e-5 and here_err <= 2 * cfg.learning_rate
         log("parallel/tp" if name.endswith("/tp") else f"parallel/families/{name}", **fields)
         if loss_err > 1e-5 or err > bound or set_rel > 1e-4 or not replicated or not boards_equal:
             raise AssertionError(f"{name}: the sharded run differs from the one-process run")
+        if not resume_ok:
+            raise AssertionError(f"{name}: a resumed tp checkpoint differs from the uninterrupted run")
         if name == "dqn" and [g["optimizer_count"] for g in got] + [want["optimizer_count"]] != [1] * (PAR_RANKS + 1):
             raise AssertionError("dqn: the learn gate did not open at update 2 alone")
+
+    # The full-width afterstate learner over tp: what a save and a restore
+    # cost, and the resume from update 1 against the uninterrupted update 2.
+    got, again = [r["checkpoint-tp"] for r in ranks], [r["afterstate"] for r in resumed]
+    equal = _saved_equal(root / "afterstate-tp", root / "afterstate-tp-resume", 2)
+    records = all(a["history"] == got[0]["history"][1:] for a in again)
+    size = (root / "afterstate-tp" / "1" / "state.pt").stat().st_size
+    log("parallel/checkpoint-tp", card=card, model="resnet 64x4 bf16", mesh="dp=1 x tp=2", backend="gloo",
+        envs=PAR_CKPT_ENVS, T=afterstate_config().unroll_len, updates=2,
+        save_s_per_rank=[[round(x, 4) for x in g["save_s"]] for g in got],
+        gather_s_per_rank=[[round(x, 4) for x in g["gather_s"]] for g in got],
+        restore_s_per_rank=[round(a["restore_s"][0], 4) for a in again], checkpoint_bytes=size,
+        learner_bytes_per_rank=[g["learner_bytes"] for g in got],
+        loss=[h["loss"] for h in got[0]["history"]], resumed_equal=equal, resumed_records_equal=records)
+    root_dir.cleanup()
+    if not (equal and records):
+        raise AssertionError("the afterstate learner resumed over tp differs from the uninterrupted run")
     parallel_cli_phase()
 
 
@@ -2731,7 +2926,7 @@ def main() -> int:
     # trainer, the n-tuple trainers with their kernels, PPO, A3C, DQN, tp),
     # each against one process, and train --mesh under torchrun.
     parallel_nccl_phase(dev)
-    parallel_phases(dev)
+    parallel_phases(dev, card)
     lap("parallel: NCCL, gloo ranks, torchrun")
     # Last, after every other reading: a profiled update leaves the profiler
     # with 80 k launches, which has shifted later readings.

@@ -319,11 +319,25 @@ def place_learner(mesh: Mesh, optimizer, *models: nn.Module) -> None:
     optimizer.dp_group = mesh.dp_group
 
 
+def _gather_whole(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    # The inverse of shard_params's slicing: the tp ranks' slices, in tp order, along axis 0.
+    return spmd.all_gather(t.contiguous(), mesh.tp_group).flatten(0, 1)
+
+
 def full_state_dict(model: nn.Module, mesh: Mesh) -> dict:
     """The model's ``state_dict`` with every tp-sharded weight gathered whole
     over the tp group (a collective); the tensors as they are at tp=1."""
     sharded = {f"{n}.weight" for n, m in model.named_modules() if getattr(m, "tp_sharded", False)}
-    return {
-        name: spmd.all_gather(t.contiguous(), mesh.tp_group).flatten(0, 1) if name in sharded else t
-        for name, t in model.state_dict().items()
-    }
+    return {name: _gather_whole(t, mesh) if name in sharded else t for name, t in model.state_dict().items()}
+
+
+def full_optimizer_state(optimizer, mesh: Mesh) -> dict:
+    """``optimizer.state_dict()`` (a ``train.common.Optimizer``) with the
+    moments of every tp-sharded parameter gathered whole over the tp group
+    (a collective): the state of the same optimizer at tp=1, which one over
+    the whole parameters loads, on any mesh or in one process."""
+    state = optimizer.state_dict()
+    for m, moments in optimizer.moments.items():
+        for i in sorted(optimizer.sharded):
+            state[m][i] = _gather_whole(moments[i], mesh).cpu()
+    return state

@@ -342,7 +342,7 @@ def train_a3c(
     if checkpointer is not None and checkpointer.latest_step() is not None:
         state = checkpointer.restore(state)
         print(f"resumed from checkpoint step {state.update_step}", flush=True)
-    state = common.place_on_mesh(mesh, state, optimizer, model, checkpointer=checkpointer)
+    state = common.place_on_mesh(mesh, state, optimizer, model)
     step = make_a3c_step(config, model, optimizer, mesh)
 
     history = []

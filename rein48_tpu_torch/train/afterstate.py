@@ -345,7 +345,7 @@ def train_afterstate_td(
     elif warm_start_params is not None:
         model.load_state_dict(warm_start_params)
         print("warm-started afterstate value params", flush=True)
-    state = common.place_on_mesh(mesh, state, optimizer, model, checkpointer=checkpointer)
+    state = common.place_on_mesh(mesh, state, optimizer, model)
     step = make_afterstate_td_step(config, model, optimizer, mesh)
 
     history = []

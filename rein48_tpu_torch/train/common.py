@@ -226,28 +226,48 @@ def make_optimizer(
     return Optimizer(name, learning_rate, params, max_grad_norm=max_grad_norm)
 
 
-def place_on_mesh(mesh, state, optimizer: Optimizer | None, *models, checkpointer=None, batched=("env",)):
+def place_on_mesh(mesh, state, optimizer: Optimizer | None, *models, batched=("env",)):
     """A trainer's state on a mesh (``parallel/``): this rank's rows of the
     ``batched`` fields (each with the global batch as axis 0), and the
     learner placed (``parallel.mesh.place_learner``; a learner without an
     optimizer has nothing to place). Without a mesh the state as it is.
-    Checkpoints of tp-sharded parameters are refused."""
+    ``state`` is whole (built, or restored from any checkpoint), so a run
+    resumes on any mesh."""
     if mesh is None:
         return state
     if mesh.group is None and mesh.dp * mesh.tp > 1:
         raise ValueError(f"a mesh of {mesh.dp * mesh.tp} ranks needs their process group: make it after multihost.initialize()")
-    if mesh.tp > 1 and checkpointer is not None:
-        raise ValueError("checkpoints hold whole parameters: train with tp=1 to checkpoint")
     state = dataclasses.replace(state, **{k: mesh_lib.shard_batch(getattr(state, k), mesh) for k in batched})
     if optimizer is not None:
         mesh_lib.place_learner(mesh, optimizer, *models)
     return state
 
 
+def gather_learners(state, mesh):
+    """``state`` with its learners whole (a collective over the tp group):
+    every module as its ``state_dict`` with the tp-sharded weights gathered
+    (``parallel.mesh.full_state_dict``), every :class:`Optimizer` as its
+    ``state_dict`` with the moments of the sharded parameters gathered
+    (``parallel.mesh.full_optimizer_state``). The result packs as the state
+    of a run at tp=1 does. At tp=1 the state as it is."""
+    if mesh.tp == 1:
+        return state
+
+    def whole(value):
+        if isinstance(value, torch.nn.Module):
+            return mesh_lib.full_state_dict(value, mesh)
+        if isinstance(value, Optimizer):
+            return mesh_lib.full_optimizer_state(value, mesh)
+        return value
+
+    return dataclasses.replace(state, **{f.name: whole(getattr(state, f.name)) for f in dataclasses.fields(state)})
+
+
 def log_and_save(record: dict, logger, checkpointer, step: int, state, mesh=None, batched=("env",), gather=None) -> None:
     """Log a record and save at the points ``save_every`` divides. On a mesh
     rank 0 logs; every rank takes part in a save, which gathers the global
-    state (the ``batched`` fields, or ``gather``), and rank 0 writes it."""
+    state (the ``batched`` fields over "dp", or ``gather``, then the
+    learners over "tp": :func:`gather_learners`), and rank 0 writes it."""
     if logger is not None and (mesh is None or mesh.is_primary):
         logger.write(record)
     if checkpointer is None:
@@ -258,4 +278,4 @@ def log_and_save(record: dict, logger, checkpointer, step: int, state, mesh=None
     if gather is None:
         def gather(s):
             return dataclasses.replace(s, **{k: mesh_lib.gather_batch(getattr(s, k), mesh) for k in batched})
-    checkpointer.maybe_save(step, state, gather=gather)
+    checkpointer.maybe_save(step, state, gather=lambda s: gather_learners(gather(s), mesh))

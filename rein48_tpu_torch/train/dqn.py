@@ -427,7 +427,7 @@ def train_dqn(
             env, replay = mesh_lib.gather_batch(s.env, mesh), gather_replay(s.replay, config.num_envs, mesh)
             return dataclasses.replace(s, env=env, replay=replay)
 
-    state = common.place_on_mesh(mesh, state, optimizer, model, checkpointer=checkpointer)
+    state = common.place_on_mesh(mesh, state, optimizer, model)
     step = make_dqn_step(config, model, state.target_model, optimizer, mesh)
 
     history = []

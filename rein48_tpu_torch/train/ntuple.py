@@ -329,7 +329,7 @@ def train_ntuple(
     if mesh is not None:
         # The tables are built or restored alike on every rank; compare their sums.
         spmd.assert_replicated([t.sum(dtype=torch.float64) for t in state.params.values()], mesh.group, "tables")
-    state = common.place_on_mesh(mesh, state, None, checkpointer=checkpointer, batched=BATCHED)
+    state = common.place_on_mesh(mesh, state, None, batched=BATCHED)
     step = make_ntuple_step(config, device, mesh)
     cached = net.config.backend == "cached"
     if cached:

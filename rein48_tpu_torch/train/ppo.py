@@ -327,7 +327,7 @@ def train_ppo(
         model.load_state_dict(warm_start_policy)
         print("warm-started policy params", flush=True)
     learners = (model,) if state.after_model is None else (model, state.after_model)
-    state = common.place_on_mesh(mesh, state, optimizer, *learners, checkpointer=checkpointer)
+    state = common.place_on_mesh(mesh, state, optimizer, *learners)
     step = make_ppo_step(config, model, optimizer, state.after_model, mesh)
 
     history = []

@@ -17,9 +17,13 @@ would, on any device.
 
 On a mesh (``parallel/``) the state is saved whole: every rank calls
 :meth:`Checkpointer.maybe_save` with a ``gather`` that puts the global state
-together (the env batch and a replay buffer in global order), and rank 0
-writes it. Every rank restores the global state and takes its own slice,
-so a checkpoint of any number of ranks resumes on any other.
+together (the env batch and a replay buffer in global order over "dp"; the
+tp-sharded weights and their optimizer moments gathered whole over "tp",
+``train.common.gather_learners``), and rank 0 writes it. A checkpoint of
+any mesh therefore holds what one of the same trainer in one process
+holds, key for key, shape for shape, dtype for dtype. Every rank restores
+the global state and takes its own slice, so a checkpoint of any mesh
+resumes on any other, or in one process.
 
 A save is written under a temporary name and renamed into place, so a
 crash mid-save never leaves a directory that looks like a step; opening
@@ -56,11 +60,19 @@ def _pack(value: Any) -> Any:
         return {f.name: _pack(getattr(value, f.name)) for f in dataclasses.fields(value)}
     if isinstance(value, dict):
         return {k: _pack(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_pack(v) for v in value]
     if torch.is_tensor(value):
         return value.detach().cpu()
     if value is None or isinstance(value, (bool, int, float, str)):
         return value
     raise TypeError(f"cannot checkpoint a {type(value).__name__}")
+
+
+def pack_state(state: Any) -> Dict[str, Any]:
+    """What :meth:`Checkpointer.save` writes for ``state`` (a dataclass):
+    each field packed, every tensor on the CPU."""
+    return {f.name: _pack(getattr(state, f.name)) for f in dataclasses.fields(state)}
 
 
 def is_primary() -> bool:
@@ -119,7 +131,7 @@ class Checkpointer:
 
     def save(self, step: int, state: Any) -> None:
         """Write ``state`` as step ``step`` (replacing one saved before)."""
-        payload = {f.name: _pack(getattr(state, f.name)) for f in dataclasses.fields(state)}
+        payload = pack_state(state)
         tmp = tempfile.mkdtemp(prefix=f"{step}.", suffix=_TMP_SUFFIX, dir=self.directory)
         try:
             torch.save(payload, os.path.join(tmp, _STATE_FILE))

@@ -26,7 +26,7 @@ from rein48_tpu_torch.agents import ntuple as ntuple_lib
 from rein48_tpu_torch.parallel import mesh as mesh_lib
 from rein48_tpu_torch.parallel import multihost, spmd
 from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ntuple, ppo
-from rein48_tpu_torch.utils.checkpoint import Checkpointer
+from rein48_tpu_torch.utils.checkpoint import Checkpointer, pack_state
 
 TINY = (("channels", 8), ("num_blocks", 1), ("dtype", torch.float32))
 CASES = {}
@@ -247,6 +247,33 @@ def dqn_resume(mesh, directory):
         "params": _params(state.model, mesh),
         "boards": state.env.boards.detach().cpu().clone(),
     }
+
+
+NTUPLE_CFG = ntuple.NTupleTrainConfig(batch_size=16, steps_per_update=4, alpha=0.5, **NTUPLE_CASES["tiny-torch-step"])
+# Every trainer that takes a mesh, at the configurations above.
+TRAINERS = {
+    "a3c": (a3c.train_a3c, A3C_CFG),
+    "ppo+critic": (ppo.train_ppo, PPO_CFG),
+    "afterstate": (afterstate.train_afterstate_td, AFTERSTATE_CFG),
+    "dqn": (dqn.train_dqn, DQN_CFG),
+    "ntuple": (ntuple.train_ntuple, NTUPLE_CFG),
+}
+
+
+@case
+def train_checkpointed(mesh, arg):
+    """``arg = (trainer, directory, updates)``: the trainer of ``TRAINERS``
+    for ``updates`` updates, resuming the latest checkpoint under
+    ``directory`` and saving every 2 updates there. Returns the records and
+    the state as its checkpoint would hold it: the learners gathered whole
+    over "tp" (``common.gather_learners``), the batched fields this rank's."""
+    name, directory, updates = arg
+    train, cfg = TRAINERS[name]
+    ckpt = Checkpointer(directory, save_every=2)
+    state, history = train(cfg, updates, mesh=mesh, log_every=1, checkpointer=ckpt, device=DEVICE)
+    if mesh is not None:
+        state = common.gather_learners(state, mesh)
+    return {"history": without_rate(history), "state": pack_state(state)}
 
 
 @case
