@@ -41,8 +41,12 @@ kernels, PPO with the critic, A3C, the DQN flagship's learn gate and the
 A3C MLP over tensor parallelism, each against one process, the tp runs'
 checkpoints (the A3C MLP's and the full-width ResNet afterstate
 learner's) resumed in a fresh pair of ranks bit for bit and the A3C one in
-one process, and ``train --mesh`` under ``torchrun``; checks what comes
-out, and prints one line per phase. Each path runs
+one process, and ``train --mesh`` under ``torchrun``; then the recipes of
+``examples/`` through their ``main`` (``rein48_tpu_torch.examples``, at their
+full widths, cut in updates and evaluation steps, the warm-start chain in
+order), their records held to the JAX recipes' keys, and the n-tuple recipe's
+learning through its ``main`` over 40 updates under ``"auto"`` and
+``"cached"`` held to the JAX run's recorded curve; checks what comes out, and prints one line per phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -56,7 +60,9 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import csv
 import dataclasses
+import importlib
 import io
 import json
 import re
@@ -159,6 +165,42 @@ KL_AT_BEHAVIOR_TOL = 1e-3
 # (DDPGConfig(): learning from update 10 of 12).
 DQN_EVAL_ENVS, DQN_EVAL_STEPS = 1024, 1000
 DDPG_UPDATES = 12
+# The recipes of examples/ as the port's entry points
+# (rein48_tpu_torch.examples), in the order they feed each other (their
+# checkpoints are the next ones' donors), at their full widths: cut only in
+# updates (2; the DQN recipes up to their first learning update, 50,000
+# transitions at 4,096 envs x 2 acting steps: update 7) and in evaluation
+# steps (each evaluation call capped at RECIPE_EVAL_STEPS; the depth-2
+# recipes in probe mode, RECIPE_EVAL_STEPS // 2 steps a probe).
+RECIPE_EVAL_STEPS = 16
+PROBE = ["probe", "8"]
+RECIPES = (
+    ("train_ntuple", ["2"]),
+    ("eval_ntuple", []),
+    ("eval_ntuple_depth1", []),
+    ("eval_ntuple_depth2", PROBE + ["20480", "8", str(RECIPE_EVAL_STEPS // 2)]),
+    ("train_ppo", ["2"]),
+    ("train_ppo_flagship", ["2"]),
+    ("eval_ppo_depth1", []),
+    ("train_ppo_afterstate", ["2"]),
+    ("train_afterstate_td", ["2"]),
+    ("eval_afterstate_depth2", PROBE + ["16384", "8", str(RECIPE_EVAL_STEPS // 2)]),
+    ("train_a3c", ["2"]),
+    ("train_a3c_flagship", ["2"]),
+    ("train_dqn", ["7"]),
+    ("train_dqn_nstep", ["7"]),
+    ("a3c_parity_curve", ["2"]),
+)
+# [capability/ntuple]: the train_ntuple recipe's main as BASELINE.md:97-98
+# ran examples/train_ntuple_tpu.py (4000 1024 delayed: YEH_4X6, B=1024,
+# T=128, delayed/4, TC, seed 0, a record every 20 updates), for 40 updates
+# under "auto" (the plain path, as JAX's "xla") and under "cached" (the
+# kernels).
+# The mean avg_episode_score of the records at updates 20 and 40 must lie
+# within CAPABILITY_BAND of the same mean of the JAX run's curve,
+# runs/ntuple_tpu/metrics.csv (27,540.1). Random play scores 1-2k.
+CAPABILITY_UPDATES, CAPABILITY_BATCH, CAPABILITY_LOG_EVERY = 40, 1024, 20
+CAPABILITY_BAND = (0.7, 1.3)
 
 
 def log(phase: str, **fields) -> None:
@@ -2633,6 +2675,109 @@ def parallel_cli_phase() -> None:
         raise AssertionError(f"train --mesh under torchrun failed: {proc.stderr[-3000:]}")
 
 
+def recipes_phase(dev) -> None:
+    """``[recipes/<module>]``: every recipe's ``main`` at its full widths in
+    one temporary working directory (``RECIPES``), its records checked
+    against the keys of the JAX recipe's (``_recipe.jax_keys``)."""
+    from rein48_tpu_torch.engine import fused
+    from rein48_tpu_torch.examples import _recipe
+    from rein48_tpu_torch.testing import capped_evaluations
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        for name, argv in RECIPES:
+            module = importlib.import_module(f"rein48_tpu_torch.examples.{name}")
+            saved = getattr(module, "evaluations", None)  # a3c_parity_curve scores its own way
+            if saved is not None:
+                module.evaluations = capped_evaluations(saved, num_steps=RECIPE_EVAL_STEPS)
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_table_counts()
+            fused.launches = 0
+            t0 = time.perf_counter()
+            try:
+                out = module.main(argv, device=dev)
+            finally:
+                if saved is not None:
+                    module.evaluations = saved
+            wall = time.perf_counter() - t0
+            want = _recipe.jax_keys(module, root)
+            row = dict(argv=" ".join(argv), wall_s=round(wall, 2), peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3),
+                       launches=json.dumps({k: v for k, v in kernel_launches().items() if v}))
+            for path in (p for p in want if p.endswith(".csv")):
+                with open(path) as f:
+                    last = list(csv.DictReader(f))[-1]
+                # Since the logger opened: init and the first update's warm-up included.
+                row.update(updates=int(last["update"]), ms_per_update=round(1e3 * float(last["wall_time"]) / int(last["update"]), 1),
+                           steps_per_sec=round(float(last["steps_per_sec"]), 1))
+            if isinstance(out, dict):
+                result = out.get("eval", out.get("results", {k: v for k, v in out.items() if k != "seeds"}))
+                row["eval"] = json.dumps(result, default=str)[:600]
+            log(f"recipes/{name}", **row)
+            got = {path: _recipe.record_keys(path) for path in want}
+            if got != want:
+                raise AssertionError(f"recipe {name} wrote records with keys {got}, the JAX recipe {want}")
+            if name.startswith("eval_") and name.endswith("depth2") and set(out) != {"compile+run", "steady"}:
+                raise AssertionError(f"recipe {name} probed {sorted(out)}")
+            torch.cuda.empty_cache()
+
+
+def capability_ntuple_phase(dev) -> None:
+    """``[capability/ntuple]``: the n-tuple recipe's ``main``, its learning
+    held to the JAX run's recorded curve, under "auto" and under "cached"
+    (the backend set by replacing the recipe's ``make_config``, its closing
+    evaluations capped as in ``recipes_phase``), each in a fresh directory."""
+    from rein48_tpu_torch.examples import train_ntuple as recipe
+    from rein48_tpu_torch.testing import capped_evaluations
+
+    with open(Path(__file__).resolve().parent / "runs/ntuple_tpu/metrics.csv") as f:
+        curve = {int(r["update"]): r for r in csv.DictReader(f)}
+    checks = range(CAPABILITY_LOG_EVERY, CAPABILITY_UPDATES + 1, CAPABILITY_LOG_EVERY)
+    jax_mean = float(np.mean([float(curve[u]["avg_episode_score"]) for u in checks]))
+    jax_td = [round(float(curve[u]["td_abs_err"]), 1) for u in checks]
+    argv = [str(CAPABILITY_UPDATES), str(CAPABILITY_BATCH), "delayed"]
+    make_config, evaluations = recipe.make_config, recipe.evaluations
+    config = make_config(*recipe.parse(argv))
+    env_steps = CAPABILITY_UPDATES * config.batch_size * config.steps_per_update
+    for backend in ("auto", "cached"):
+        resolved = dataclasses.replace(config, table_backend=backend).network_config(dev).backend
+        recipe.make_config = lambda *a, backend=backend: dataclasses.replace(make_config(*a), table_backend=backend)
+        recipe.evaluations = capped_evaluations(evaluations, num_steps=RECIPE_EVAL_STEPS)
+        try:
+            with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+                zero_table_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                recipe.main(argv, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = table_counts()
+                with open("runs/ntuple_cuda/metrics.csv") as f:
+                    rows = {int(r["update"]): {k: float(v) for k, v in r.items()} for r in csv.DictReader(f)}
+        finally:
+            recipe.make_config, recipe.evaluations = make_config, evaluations
+        mean = float(np.mean([rows[u]["avg_episode_score"] for u in checks]))
+        train_s = rows[CAPABILITY_UPDATES]["wall_time"]  # since the logger opened: init and warm-up included
+        log(
+            "capability/ntuple", backend=backend, B=config.batch_size, T=config.steps_per_update, updates=CAPABILITY_UPDATES,
+            resolved=resolved, main_wall_s=round(wall, 2), train_s=round(train_s, 2), env_steps_per_s=round(env_steps / train_s, 1),
+            avg_episode_score=[round(rows[u]["avg_episode_score"], 1) for u in checks],
+            episodes=[rows[u]["episodes"] for u in checks], mean=round(mean, 1), jax_mean=round(jax_mean, 1),
+            ratio=round(mean / jax_mean, 4), band=CAPABILITY_BAND,
+            td_abs_err=[round(rows[u]["td_abs_err"], 1) for u in checks], jax_td_abs_err=jax_td,
+            launches=json.dumps({k: v for k, v in launches.items() if v}),
+        )
+        if not CAPABILITY_BAND[0] <= mean / jax_mean <= CAPABILITY_BAND[1]:
+            raise AssertionError(f"the n-tuple recipe under {backend!r} scores {mean:.1f} at updates {list(checks)}, the JAX run {jax_mean:.1f}")
+        # The learning run under "cached" launches both kernels on every update
+        # (the closing evaluations may add launches of their own).
+        kernels = {"ntuple_value", "cached_scatter"} if backend == "cached" else set()
+        launched = {k for k, v in launches.items() if v}
+        if resolved != ("cached" if kernels else "torch") or not kernels <= launched or (not kernels and launched):
+            raise AssertionError(f"the {backend!r} run resolved to {resolved} and launched {launches}")
+        if kernels and min(launches[k] for k in kernels) < CAPABILITY_UPDATES:
+            raise AssertionError(f"the 'cached' run launched {launches} in {CAPABILITY_UPDATES} updates")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2928,6 +3073,14 @@ def main() -> int:
     parallel_nccl_phase(dev)
     parallel_phases(dev, card)
     lap("parallel: NCCL, gloo ranks, torchrun")
+    # 43-44. The recipes of examples/ through their main at full widths (each
+    # logs the kernel launches it made), then the n-tuple recipe's learning
+    # against the JAX run's curve: YEH_4X6 "auto" is the plain path, the
+    # "cached" run launches the value and hot-prefix kernels.
+    recipes_phase(dev)
+    lap("recipes of examples/")
+    capability_ntuple_phase(dev)
+    lap("capability: the n-tuple recipe's curve, auto and cached")
     # Last, after every other reading: a profiled update leaves the profiler
     # with 80 k launches, which has shifted later readings.
     value_launches = value_launches_phase(sj_trained, dev)

@@ -42,3 +42,17 @@ def edge_boards(n: int, seed: int = 0) -> np.ndarray:
     variants = np.concatenate(turns + [t.transpose(0, 2, 1) for t in turns])
     pick = np.random.default_rng(seed).integers(0, len(variants), n)
     return np.ascontiguousarray(variants[pick])
+
+
+def capped_evaluations(evaluations, **caps):
+    """A recipe's ``evaluations`` (``rein48_tpu_torch.examples``) with each
+    call's keywords capped, e.g. ``num_steps=32``: the same calls, each
+    keyword at most its cap (a ``None`` stays ``None``)."""
+
+    def capped(*args, **kwargs):
+        return [
+            (tag, {k: min(v, caps[k]) if k in caps and v is not None else v for k, v in kw.items()})
+            for tag, kw in evaluations(*args, **kwargs)
+        ]
+
+    return capped
