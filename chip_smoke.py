@@ -44,9 +44,13 @@ learner's) resumed in a fresh pair of ranks bit for bit and the A3C one in
 one process, and ``train --mesh`` under ``torchrun``; then the recipes of
 ``examples/`` through their ``main`` (``rein48_tpu_torch.examples``, at their
 full widths, cut in updates and evaluation steps, the warm-start chain in
-order), their records held to the JAX recipes' keys, and the n-tuple recipe's
-learning through its ``main`` over 40 updates under ``"auto"`` and
-``"cached"`` held to the JAX run's recorded curve; checks what comes out, and prints one line per phase. Each path runs
+order) and the two frontier sweeps one leg each, their records held to the
+JAX recipes' keys; then the learning of four recipes through their ``main``
+held to the JAX runs' recorded curves (``rein48_tpu_torch.testing``): the
+n-tuple recipe over 40 updates under ``"auto"`` and ``"cached"``, and PPO,
+the fresh afterstate-TD flagship and the A3C flagship over 40-50 updates at
+their JAX runs' schedule horizons, above random play measured on the same
+engine; checks what comes out, and prints one line per phase. Each path runs
 with the kernels' launch counts set to 0 just before it and read just
 after. A failing phase raises, so the script exits non-zero. The
 second-to-last line is a JSON object describing every ported kernel; the
@@ -78,6 +82,8 @@ import torch
 
 SEED = 20260
 BENCH_B, BENCH_T, BENCH_ROUNDS = 65536, 2048, 8
+# Timed runs of each ResNet serving depth, after an untimed warm-up.
+SERVE_REPEATS = 1
 # The card's rates (H100 SXM data sheet: 67 TFLOP/s float32 is 132 SMs x
 # 128 lanes x 2 flops x 1.98 GHz; HBM3 at 3.35 TB/s). An SM issues four
 # warp instructions (128 thread instructions) per clock, and its INT32 pipe
@@ -105,7 +111,7 @@ Q_BF16_TOL = 0.04
 # it (examples/bench_mxu_trainer_tpu.py:54-60): SJ_2X4 (2 tables of 65,536
 # entries, 8 lookups each), B=1024, 128 steps per update.
 NT_B, NT_T = 1024, 128
-NT_UPDATES = {"step": 10, "delayed": 5}  # step mode's tables are then played
+NT_UPDATES = {"step": 8, "delayed": 3}  # step mode's tables are then played
 NT_EVAL_ENVS, NT_EVAL_STEPS = 512, 600
 NT_D1_ENVS, NT_D1_STEPS = 256, 48
 # The "cached" trainer at the flagship's width and the JAX package's cached
@@ -117,7 +123,7 @@ NT_D1_ENVS, NT_D1_STEPS = 256, 48
 HP_PREFIX_ROWS = (2048, 8192)
 HP_UPDATES = {"delayed": 4, "step": 2}
 HP_REFRESH_EVERY = 2
-HP_EVAL_ENVS, HP_EVAL_STEPS = 512, 500
+HP_EVAL_ENVS, HP_EVAL_STEPS = 512, 250
 # Scatter sums are reassociated (atomics, in an order that changes from run
 # to run; index_add_ on the card uses atomics too). The rounding of a float32
 # sum grows with the magnitude of its terms, not of its result, so a sum of
@@ -131,8 +137,9 @@ TABLE_RTOL, TABLE_ATOL = 1e-5, 1e-6
 # (examples/train_afterstate_td_tpu.py:49-60): B=8192, T=32, ResNet 64x4 in
 # bf16, adam at 1e-4 on a cosine over the run's updates to 0.1 of it, gamma
 # 0.997, lambda 0.7, 2 epochs x 4 minibatches of 65,536 boards. The first
-# update is a warm-up (cuDNN picks its algorithms).
-AS_UPDATES = 6
+# update is a warm-up (cuDNN picks its algorithms). Four updates:
+# [capability/afterstate] trains fifty more at this width.
+AS_UPDATES = 4
 # One minibatch's loss and gradient norm of the bf16 net on the card
 # against the float32 net on the CPU, relative: values near 14 round to
 # 2**-4 steps in bf16; on the CPU, bf16 against float32 moved the loss by
@@ -143,27 +150,29 @@ AS_UPDATES = 6
 LOSS_BF16_RTOL = 0.02
 AS_BF16_BOARDS = 2048
 # eval --algo search --checkpoint-dir: (depth, envs, steps, chance_chunk).
-AS_EVAL = ((0, 1024, 300, None), (1, 256, 100, 4))
+AS_EVAL = ((0, 1024, 150, None), (1, 256, 50, 4))
 # The PPO flagship (examples/train_ppo_flagship_tpu.py:42-52): B=8192, T=32,
 # ResNet 64x4 in bf16, gamma 0.997, adam at 3e-4 on a cosine over the
 # example's 8,000 updates to 0.1 of it, entropy weight 0.01 -> 0.002 over
 # 6,400 updates, 4 epochs x 4 minibatches of 65,536 boards, clip norm 0.5.
 # The first update is a warm-up. With the afterstate critic
 # (examples/train_ppo_afterstate_tpu.py:51-67): two ResNets 64x4, lr 1.2e-4
-# over 6,000 updates, entropy 0.003 -> 0.001 over 4,800.
-PPO_UPDATES, PPOC_UPDATES = 4, 3
+# over 6,000 updates, entropy 0.003 -> 0.001 over 4,800. Few updates:
+# [capability/ppo] trains forty more of the same net and epochs at B=4096.
+PPO_UPDATES, PPOC_UPDATES = 3, 2
 # The A3C flagship (examples/train_a3c_flagship_tpu.py:43-54): B=8192, T=32,
 # ResNet 64x4 bf16, gamma 0.997, adam at 3e-4 over 12,000 updates, entropy
 # 0.01 -> 0.002 over 9,600; one pass over all 262,144 boards per update.
 # Then the reference-parity regime (B=64, T=100, the MLP on raw tiles).
-A3C_UPDATES, A3C_PARITY_UPDATES = 4, 3
+# [capability/a3c] trains fifty more flagship updates.
+A3C_UPDATES, A3C_PARITY_UPDATES = 3, 3
 # The first minibatch's approx_kl before any optimizer step: acting ran the
 # net at 8,192 boards and the learn phase runs it at 65,536, where cuDNN
 # may pick other bf16 algorithms, so the ratios are 1 only up to rounding.
 KL_AT_BEHAVIOR_TOL = 1e-3
 # eval --algo dqn --checkpoint-dir of the DQN flagship, and DDPG's updates
 # (DDPGConfig(): learning from update 10 of 12).
-DQN_EVAL_ENVS, DQN_EVAL_STEPS = 1024, 1000
+DQN_EVAL_ENVS, DQN_EVAL_STEPS = 1024, 500
 DDPG_UPDATES = 12
 # The recipes of examples/ as the port's entry points
 # (rein48_tpu_torch.examples), in the order they feed each other (their
@@ -191,15 +200,29 @@ RECIPES = (
     ("train_dqn_nstep", ["7"]),
     ("a3c_parity_curve", ["2"]),
 )
-# [capability/ntuple]: the train_ntuple recipe's main as BASELINE.md:97-98
-# ran examples/train_ntuple_tpu.py (4000 1024 delayed: YEH_4X6, B=1024,
-# T=128, delayed/4, TC, seed 0, a record every 20 updates), for 40 updates
-# under "auto" (the plain path, as JAX's "xla") and under "cached" (the
-# kernels).
-# The mean avg_episode_score of the records at updates 20 and 40 must lie
-# within CAPABILITY_BAND of the same mean of the JAX run's curve,
-# runs/ntuple_tpu/metrics.csv (27,540.1). Random play scores 1-2k.
-CAPABILITY_UPDATES, CAPABILITY_BATCH, CAPABILITY_LOG_EVERY = 40, 1024, 20
+# The frontier sweeps through their main, one leg each at a small budget: the
+# clock is read every 20 updates of YEH_4X6 at B=1024 on "cached"
+# (delayed/4), about 18 s, so that leg trains one check; and after every
+# update at B=16384 (the plain path, as JAX's default backend), about 0.8 s,
+# so that one trains a few. Evaluations capped at RECIPE_EVAL_STEPS.
+FRONTIER_BUDGET_S = 1.0
+FRONTIERS = (
+    ("ntuple_frontier", ["cached", "delayed:4"], 20, "cached"),
+    ("ntuple_frontier_b", ["16384"], 1, "torch"),
+)
+# [capability/<name>]: a recipe's main at its full width, its learning held to
+# the JAX run's recorded curve (rein48_tpu_torch.testing.LEARNING_CHECKS:
+# the argv, the JAX run, the check updates and the column): the mean at the
+# check updates must lie within CAPABILITY_BAND of the JAX run's, and above
+# random play's (measured here, on the plain engine, RANDOM_ENVS first
+# episodes). The n-tuple recipe (YEH_4X6, B=1024, T=128, delayed/4, 40
+# updates; JAX 27,540.1) runs under "auto" (the plain path, as JAX's "xla")
+# and "cached" (the kernels); PPO (40 updates at B=4096; 525.6), the fresh
+# afterstate-TD flagship (50 at B=8192; 571.4) and the A3C flagship (50 at
+# B=8192; 519.5) act through the plain engine and launch no kernel. Each
+# config is built at its JAX run's horizon (eval.json's updates), so the
+# schedules decay as they did there.
+RANDOM_ENVS = 8192
 CAPABILITY_BAND = (0.7, 1.3)
 
 
@@ -818,10 +841,9 @@ def kernel_profile(fn, reps: int = 1) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and profiling._device_us(e) > 0
-               and not e.key.startswith(("Memcpy", "Memset"))]
-    device_ms = sum(profiling._device_us(e) for e in kernels) / 1e3 / reps
-    return {"launches": sum(e.count for e in kernels) // reps, "device_ms": round(device_ms, 6),
+    kernels = [v for k, v in profiling.kernel_times(prof)[0].items() if not k.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(us for us, _ in kernels) / 1e3 / reps
+    return {"launches": sum(calls for _, calls in kernels) // reps, "device_ms": round(device_ms, 6),
             "wall_ms": round(wall_ms, 4), "busy_share": round(device_ms / wall_ms, 4)}
 
 
@@ -1989,7 +2011,7 @@ def dqn_qnet_phase(dev):
 
 
 def dqn_eval_phase(ckpt_dir):
-    """``eval --algo dqn --checkpoint-dir`` at 1,024 envs and 1,000 steps."""
+    """``eval --algo dqn --checkpoint-dir`` at 1,024 envs and 500 steps."""
     t0 = time.perf_counter()
     out, err = run_cli_output(["eval", "--algo", "dqn", "--checkpoint-dir", ckpt_dir, "--num-envs", str(DQN_EVAL_ENVS),
                                "--max-steps", str(DQN_EVAL_STEPS), "--seed", str(SEED)])
@@ -2713,7 +2735,7 @@ def recipes_phase(dev) -> None:
                 result = out.get("eval", out.get("results", {k: v for k, v in out.items() if k != "seeds"}))
                 row["eval"] = json.dumps(result, default=str)[:600]
             log(f"recipes/{name}", **row)
-            got = {path: _recipe.record_keys(path) for path in want}
+            got = _recipe.written_keys(module)
             if got != want:
                 raise AssertionError(f"recipe {name} wrote records with keys {got}, the JAX recipe {want}")
             if name.startswith("eval_") and name.endswith("depth2") and set(out) != {"compile+run", "steady"}:
@@ -2721,61 +2743,124 @@ def recipes_phase(dev) -> None:
             torch.cuda.empty_cache()
 
 
-def capability_ntuple_phase(dev) -> None:
-    """``[capability/ntuple]``: the n-tuple recipe's ``main``, its learning
-    held to the JAX run's recorded curve, under "auto" and under "cached"
-    (the backend set by replacing the recipe's ``make_config``, its closing
-    evaluations capped as in ``recipes_phase``), each in a fresh directory."""
-    from rein48_tpu_torch.examples import train_ntuple as recipe
+def frontier_phase(dev) -> None:
+    """``[recipes/<frontier>]``: each frontier sweep's ``main`` (``FRONTIERS``)
+    in a temporary directory, one leg through its budget, its
+    record's keys held to the JAX record's (``frontier_r3.json`` lacks the
+    ``backend`` key the script writes) and, under ``"cached"``, each kernel
+    launched at least once per update."""
+    from rein48_tpu_torch.examples import _recipe
     from rein48_tpu_torch.testing import capped_evaluations
 
-    with open(Path(__file__).resolve().parent / "runs/ntuple_tpu/metrics.csv") as f:
-        curve = {int(r["update"]): r for r in csv.DictReader(f)}
-    checks = range(CAPABILITY_LOG_EVERY, CAPABILITY_UPDATES + 1, CAPABILITY_LOG_EVERY)
-    jax_mean = float(np.mean([float(curve[u]["avg_episode_score"]) for u in checks]))
-    jax_td = [round(float(curve[u]["td_abs_err"]), 1) for u in checks]
-    argv = [str(CAPABILITY_UPDATES), str(CAPABILITY_BATCH), "delayed"]
-    make_config, evaluations = recipe.make_config, recipe.evaluations
-    config = make_config(*recipe.parse(argv))
-    env_steps = CAPABILITY_UPDATES * config.batch_size * config.steps_per_update
-    for backend in ("auto", "cached"):
-        resolved = dataclasses.replace(config, table_backend=backend).network_config(dev).backend
-        recipe.make_config = lambda *a, backend=backend: dataclasses.replace(make_config(*a), table_backend=backend)
-        recipe.evaluations = capped_evaluations(evaluations, num_steps=RECIPE_EVAL_STEPS)
+    root = Path(__file__).resolve().parent
+    for name, legs, check_every, backend in FRONTIERS:
+        module = importlib.import_module(f"rein48_tpu_torch.examples.{name}")
+        argv = [str(FRONTIER_BUDGET_S), module.OUT, *legs]
+        saved = module.evaluations
+        module.evaluations = capped_evaluations(saved, num_steps=RECIPE_EVAL_STEPS)
+        torch.cuda.reset_peak_memory_stats(dev)
         try:
             with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
                 zero_table_counts()
-                torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                recipe.main(argv, device=dev)
-                torch.cuda.synchronize()
+                out = module.main(argv, device=dev)
                 wall = time.perf_counter() - t0
                 launches = table_counts()
-                with open("runs/ntuple_cuda/metrics.csv") as f:
-                    rows = {int(r["update"]): {k: float(v) for k, v in r.items()} for r in csv.DictReader(f)}
+                got = _recipe.written_keys(module)
         finally:
-            recipe.make_config, recipe.evaluations = make_config, evaluations
-        mean = float(np.mean([rows[u]["avg_episode_score"] for u in checks]))
-        train_s = rows[CAPABILITY_UPDATES]["wall_time"]  # since the logger opened: init and warm-up included
+            module.evaluations = saved
+        (leg,) = out["legs"]
         log(
-            "capability/ntuple", backend=backend, B=config.batch_size, T=config.steps_per_update, updates=CAPABILITY_UPDATES,
-            resolved=resolved, main_wall_s=round(wall, 2), train_s=round(train_s, 2), env_steps_per_s=round(env_steps / train_s, 1),
-            avg_episode_score=[round(rows[u]["avg_episode_score"], 1) for u in checks],
-            episodes=[rows[u]["episodes"] for u in checks], mean=round(mean, 1), jax_mean=round(jax_mean, 1),
-            ratio=round(mean / jax_mean, 4), band=CAPABILITY_BAND,
-            td_abs_err=[round(rows[u]["td_abs_err"], 1) for u in checks], jax_td_abs_err=jax_td,
+            f"recipes/{name}", argv=" ".join(argv), backend=backend, wall_s=round(wall, 2),
+            peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3),
+            **{k: v for k, v in leg.items() if k not in ("backend", "eval")}, eval=json.dumps(leg["eval"]),
             launches=json.dumps({k: v for k, v in launches.items() if v}),
         )
-        if not CAPABILITY_BAND[0] <= mean / jax_mean <= CAPABILITY_BAND[1]:
-            raise AssertionError(f"the n-tuple recipe under {backend!r} scores {mean:.1f} at updates {list(checks)}, the JAX run {jax_mean:.1f}")
-        # The learning run under "cached" launches both kernels on every update
-        # (the closing evaluations may add launches of their own).
+        want = _recipe.jax_keys(module, root)
+        if got != want:
+            raise AssertionError(f"{name} wrote records with keys {got}, the JAX record {want}")
+        # Stopped at the first clock check past the budget.
+        checks, rest = divmod(leg["updates"], check_every)
+        if rest or not checks or leg["train_sec"] < FRONTIER_BUDGET_S or leg["eval"]["episodes"] != 512 \
+                or not all(np.isfinite(v) for v in leg["eval"].values()):
+            raise AssertionError(f"{name} trained {leg['updates']} updates in {leg['train_sec']} s (a check every "
+                                 f"{check_every}) or scored {leg['eval']}")
+        # The warm-up update is trained too.
+        kernels = {"ntuple_value", "cached_scatter"} if backend == "cached" else set()
+        if {k for k, v in launches.items() if v} != kernels or any(launches[k] < leg["updates"] + 1 for k in kernels):
+            raise AssertionError(f"{name} on {backend!r} launched {launches} in {leg['updates'] + 1} updates")
+        torch.cuda.empty_cache()
+
+
+def random_play_phase(dev) -> float:
+    """``[capability/random]``: uniform-random legal play's mean tile sum of
+    finished episodes, the floor each learning check must clear."""
+    from rein48_tpu_torch.testing import random_play
+
+    t0 = time.perf_counter()
+    stats = random_play(dev, RANDOM_ENVS, SEED)
+    log("capability/random", envs=RANDOM_ENVS, avg_tile_sum=round(stats["avg_tile_sum"], 2),
+        avg_length=round(stats["avg_length"], 2), avg_score=round(stats["avg_score"], 1), best_tile=stats["best_tile"],
+        wall_s=round(time.perf_counter() - t0, 2))
+    return stats["avg_tile_sum"]
+
+
+def capability_phase(dev, name: str, random_tile_sum: float | None = None, backends=(None,)) -> None:
+    """``[capability/<name>]``: the recipe of ``LEARNING_CHECKS[name]`` through
+    its ``main`` in a fresh directory (``testing.learning_curve``: the config
+    at the JAX run's horizon, the closing evaluations capped as in
+    ``recipes_phase``), its mean at the check updates held to
+    ``CAPABILITY_BAND`` of the JAX run's and above ``random_tile_sum``; under
+    each of ``backends`` (a table backend swapped into the config, the
+    n-tuple recipe's "auto" and "cached"), each run's kernel launches
+    checked."""
+    from rein48_tpu_torch.testing import LEARNING_CHECKS, learning_curve
+
+    check = LEARNING_CHECKS[name]
+    root = Path(__file__).resolve().parent
+    for backend in backends:
+        configure = None if backend is None else (lambda c, backend=backend: dataclasses.replace(c, table_backend=backend))
+        zero_table_counts()
+        result = learning_curve(check, root, dev, configure=configure, num_steps=RECIPE_EVAL_STEPS)
+        launches = table_counts()
+        config, curve, checks = result["config"], result["curve"], check.checks
+        updates = int(check.argv[0])
+        steps = getattr(config, "unroll_len", None) or config.steps_per_update
+        env_steps = updates * config.batch_size * steps
+        row = dict(argv=" ".join(check.argv), horizon=result["horizon"], B=config.batch_size, T=steps, updates=updates)
+        if backend is not None:
+            config = configure(config)
+            row.update(backend=backend, resolved=config.network_config(dev).backend)
+        row.update({
+            "main_wall_s": round(result["wall_s"], 2), "train_s": round(result["train_s"], 2),
+            "env_steps_per_s": round(env_steps / result["train_s"], 1),
+            check.column: [round(v, 1) for v in result["values"]], "episodes": result["episodes"],
+            "mean": round(result["mean"], 1), "jax_mean": round(result["jax_mean"], 1), "ratio": round(result["ratio"], 4),
+            "band": CAPABILITY_BAND,
+        })
+        if "td_abs_err" in curve[checks[0]]:
+            jax_curve = result["jax_curve"]
+            row.update(td_abs_err=[round(curve[u]["td_abs_err"], 1) for u in checks],
+                       jax_td_abs_err=[round(jax_curve[u]["td_abs_err"], 1) for u in checks])
+        if random_tile_sum is not None:
+            row["random_tile_sum"] = round(random_tile_sum, 2)
+        if check.same_start:
+            row["warm_start"] = json.dumps(result["record"]["config"]["warm_start"])
+        log(f"capability/{name}", **row, launches=json.dumps({k: v for k, v in launches.items() if v}))
+        if not CAPABILITY_BAND[0] <= result["ratio"] <= CAPABILITY_BAND[1]:
+            raise AssertionError(f"{check.recipe}{'' if backend is None else f' under {backend!r}'} has {check.column} "
+                                 f"{result['mean']:.1f} at updates {list(checks)}, the JAX run {result['jax_mean']:.1f}")
+        if random_tile_sum is not None and result["mean"] <= random_tile_sum:
+            raise AssertionError(f"{check.recipe} plays no better than random: {result['mean']:.1f} <= {random_tile_sum:.1f}")
+        # Under "cached" the learning run launches both kernels on every update
+        # (the closing evaluations may add launches of their own); every other
+        # run launches none.
         kernels = {"ntuple_value", "cached_scatter"} if backend == "cached" else set()
         launched = {k for k, v in launches.items() if v}
-        if resolved != ("cached" if kernels else "torch") or not kernels <= launched or (not kernels and launched):
-            raise AssertionError(f"the {backend!r} run resolved to {resolved} and launched {launches}")
-        if kernels and min(launches[k] for k in kernels) < CAPABILITY_UPDATES:
-            raise AssertionError(f"the 'cached' run launched {launches} in {CAPABILITY_UPDATES} updates")
+        if backend is not None and row["resolved"] != ("cached" if kernels else "torch"):
+            raise AssertionError(f"the {backend!r} run resolved to {row['resolved']}")
+        if launched != kernels or any(launches[k] < updates for k in kernels):
+            raise AssertionError(f"{check.recipe}{'' if backend is None else f' under {backend!r}'} launched {launches} in {updates} updates")
 
 
 def main() -> int:
@@ -2867,7 +2952,7 @@ def main() -> int:
 
         run(4)  # untimed warm-up at the same shapes: cuDNN loads and picks its algorithms
         walls = []
-        for _ in range(2):
+        for _ in range(SERVE_REPEATS):
             t0 = time.perf_counter()
             stats = run(steps)
             walls.append(time.perf_counter() - t0)
@@ -3074,13 +3159,22 @@ def main() -> int:
     parallel_phases(dev, card)
     lap("parallel: NCCL, gloo ranks, torchrun")
     # 43-44. The recipes of examples/ through their main at full widths (each
-    # logs the kernel launches it made), then the n-tuple recipe's learning
-    # against the JAX run's curve: YEH_4X6 "auto" is the plain path, the
-    # "cached" run launches the value and hot-prefix kernels.
+    # logs the kernel launches it made) and the frontier sweeps one leg each,
+    # then the n-tuple recipe's learning against the JAX run's curve: YEH_4X6
+    # "auto" is the plain path, the "cached" run launches the value and
+    # hot-prefix kernels.
     recipes_phase(dev)
-    lap("recipes of examples/")
-    capability_ntuple_phase(dev)
+    frontier_phase(dev)
+    lap("recipes of examples/, the frontier sweeps")
+    capability_phase(dev, "ntuple", backends=("auto", "cached"))
     lap("capability: the n-tuple recipe's curve, auto and cached")
+    # 45-47. The deep trainers' learning against the JAX runs' curves, and
+    # random play's floor. No kernel of the port is on these paths.
+    random_tile_sum = random_play_phase(dev)
+    for name in ("ppo", "afterstate", "a3c"):
+        capability_phase(dev, name, random_tile_sum)
+        torch.cuda.empty_cache()
+    lap("capability: PPO, afterstate TD and A3C against JAX's curves")
     # Last, after every other reading: a profiled update leaves the profiler
     # with 80 k launches, which has shifted later readings.
     value_launches = value_launches_phase(sj_trained, dev)

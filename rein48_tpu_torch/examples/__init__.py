@@ -14,7 +14,9 @@ scores under the reference's own protocol), and writes ``runs/<tag>/`` and ``ckp
 under the working directory, the tag being the JAX script's with ``_tpu``
 replaced by ``_cuda``. Every recipe runs on the card unless ``device="cpu"``
 is passed. ``JAX_RECORDS`` maps what a recipe writes to the committed record
-of the JAX recipe whose keys it has (``_recipe.jax_keys``).
+of the JAX recipe whose keys it has (``_recipe.jax_keys``). The frontier
+sweeps (``ntuple_frontier``, ``ntuple_frontier_b``) write one record of legs
+under ``runs/`` (the JAX ones wrote theirs under ``benchmarks/``).
 
 Recipes that warm-start read the port's own checkpoints (the port reads no
 orbax): ``train_ppo_afterstate`` starts its policy from

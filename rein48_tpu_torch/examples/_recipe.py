@@ -2,12 +2,13 @@
 # SPDX-License-Identifier: Apache-2.0
 """What the recipes share: their argument layout, the training run and the
 evaluation loop around the port's APIs, the n-tuple checkpoint's restore,
-their JSON records, and the keys those records must share with the JAX
-recipes' committed ones."""
+the frontier sweeps' legs, their JSON records, and the keys those records
+must share with the JAX recipes' committed ones."""
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import os
 import sys
@@ -15,7 +16,9 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Sequence, Tuple
 
-from rein48_tpu_torch.train.ntuple import NTupleTrainConfig, init_ntuple
+import torch
+
+from rein48_tpu_torch.train.ntuple import NTupleTrainConfig, evaluate_ntuple, init_ntuple, make_ntuple_step
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
 from rein48_tpu_torch.utils.metrics import MetricLogger
 from rein48_tpu_torch.utils.profiling import force
@@ -145,20 +148,90 @@ def restore_ntuple(make_config: Callable[[dict], NTupleTrainConfig], device, tag
     return config, state, ckpt.latest_step(), t_init, time.perf_counter() - t0
 
 
+def frontier(legs: Sequence[tuple], evaluation: dict, budget_sec: float, path: str, device) -> dict:
+    """The frontier sweeps (``ntuple_frontier``, ``ntuple_frontier_b``): each
+    leg ``(label, fields, config, check_every)`` trains ``config`` from
+    ``init_ntuple`` at seed 0 for ``budget_sec`` of stepping, then plays
+    ``evaluate_ntuple(**evaluation)``. The warm-up update (and, under
+    ``"cached"``, the first refresh of the hot prefix) runs before the clock
+    starts; the clock is read after every ``check_every`` updates (one scalar
+    fetch), and under ``"cached"`` the refresh every 40 updates counts as
+    training. The record, ``{"budget_sec", "legs"}`` with each leg's
+    ``fields`` first, is written to ``path`` after every leg."""
+    record: dict = {"budget_sec": budget_sec, "legs": []}
+    for label, fields, config, check_every in legs:
+        state, net = init_ntuple(config, 0, device)
+        step = make_ntuple_step(config, device)
+        cached = config.network_config(device).backend == "cached"
+        t0 = time.perf_counter()
+        state, metrics = step(state)
+        force(metrics["td_abs_err"])
+        if cached:
+            state = dataclasses.replace(state, params=net.refresh_cache(state.params))
+            force(state.params["t0_rm"])
+        compile_sec = time.perf_counter() - t0
+
+        updates = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < budget_sec:
+            for _ in range(check_every):
+                state, metrics = step(state)
+            force(metrics["td_abs_err"])
+            updates += check_every
+            if cached and updates % 40 == 0:
+                state = dataclasses.replace(state, params=net.refresh_cache(state.params))
+        train_sec = time.perf_counter() - t0
+        env_steps = updates * config.batch_size * config.steps_per_update
+
+        t0 = time.perf_counter()
+        stats = evaluate_ntuple(state.params, config, device=device, **evaluation)
+        eval_sec = time.perf_counter() - t0
+        del state, metrics, step
+        if device.type == "cuda":  # a YEH_4X6 leg holds ~1 GB of tables
+            torch.cuda.empty_cache()
+
+        record["legs"].append({
+            **fields,
+            "compile_sec": round(compile_sec, 1),
+            "train_sec": round(train_sec, 1),
+            "updates": updates,
+            "env_steps": env_steps,
+            "steps_per_sec": round(env_steps / train_sec, 1),
+            "eval_sec": round(eval_sec, 1),
+            "eval": stats,
+        })
+        print(
+            f"LEG {label}: {env_steps / 1e6:.1f}M steps in {train_sec:.0f}s ({env_steps / train_sec / 1e3:.0f}k/s) -> "
+            f"avg_score {stats['avg_score']:.0f}, frac_1024 {stats['frac_1024']:.3f}, frac_2048 {stats['frac_2048']:.3f}",
+            flush=True,
+        )
+        write_json(path, record)
+    return record
+
+
 def write_json(path: str, obj: dict) -> None:
     """Write one record (its directory made if missing)."""
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         json.dump(obj, f, indent=2)
     print(f"wrote {path}", flush=True)
 
 
-def record_keys(path: str | Path):
+def record_keys(path: str | Path, lists: bool = False):
     """A record's keys: a CSV's header, or a JSON object's nested key set
-    (a list or scalar as ``None``)."""
+    (a scalar as ``None``, and a list too unless ``lists``: then a list of
+    objects is the list of its items' distinct key sets, in order)."""
 
     def nested(value):
-        return {k: nested(v) for k, v in value.items()} if isinstance(value, dict) else None
+        if isinstance(value, dict):
+            return {k: nested(v) for k, v in value.items()}
+        if lists and isinstance(value, list) and value and all(isinstance(v, dict) for v in value):
+            distinct: list = []
+            for keys in map(nested, value):
+                if keys not in distinct:
+                    distinct.append(keys)
+            return distinct
+        return None
 
     with open(path) as f:
         return next(csv.reader(f)) if str(path).endswith(".csv") else nested(json.load(f))
@@ -168,9 +241,18 @@ def jax_keys(module, root: str | Path) -> dict:
     """``{path the recipe writes: the keys it must have}``: those of the
     committed JAX records that ``module.JAX_RECORDS`` names (paths under
     ``root``), as ``module.adjust_jax_keys`` adjusts them where the
-    record predates the JAX script."""
-    keys = {ours: record_keys(Path(root) / theirs) for ours, theirs in getattr(module, "JAX_RECORDS", {}).items()}
+    record predates the JAX script. A module whose records hold lists of
+    objects (the frontier sweeps' legs) sets ``KEYS_IN_LISTS``."""
+    lists = getattr(module, "KEYS_IN_LISTS", False)
+    keys = {ours: record_keys(Path(root) / theirs, lists) for ours, theirs in getattr(module, "JAX_RECORDS", {}).items()}
     adjust = getattr(module, "adjust_jax_keys", None)
     if adjust is not None:
         adjust(keys)
     return keys
+
+
+def written_keys(module) -> dict:
+    """The keys of the records ``module`` wrote under the working directory,
+    read as :func:`jax_keys` reads their twins."""
+    lists = getattr(module, "KEYS_IN_LISTS", False)
+    return {path: record_keys(path, lists) for path in getattr(module, "JAX_RECORDS", {})}

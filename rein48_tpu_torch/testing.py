@@ -1,12 +1,25 @@
 # Copyright 2026 The rein48-tpu Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Inputs for checking the port's kernels against their plain versions.
+"""Inputs for checking the port's kernels against their plain versions, and
+the recipes' learning against the JAX runs' recorded curves.
 
 Nothing on a main path reads this module; the tests and ``chip_smoke.py``
-do. It imports numpy only, so that it loads without a card and without JAX.
+do. It loads without a card and without JAX, and imports the port only
+inside the functions that run it.
 """
 
 from __future__ import annotations
+
+import contextlib
+import csv
+import dataclasses
+import importlib
+import itertools
+import json
+import os
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 
@@ -56,3 +69,151 @@ def capped_evaluations(evaluations, **caps):
         ]
 
     return capped
+
+
+@dataclasses.dataclass(frozen=True)
+class LearningCheck:
+    """A recipe's learning held to the JAX run's recorded curve.
+
+    ``recipe`` (a module of ``rein48_tpu_torch.examples``) runs
+    ``main(argv)``; its ``runs/<tag>/metrics.csv`` (``tag`` the module's
+    ``TAG`` unless named) is read in ``column`` at the ``checks`` updates,
+    beside ``runs/<jax_run>/metrics.csv``. ``same_start``: the record's
+    ``config.warm_start`` must be the JAX run's (its ``eval.json``'s).
+    """
+
+    recipe: str
+    argv: tuple
+    jax_run: str
+    checks: tuple
+    column: str = "avg_episode_tile_sum"
+    tag: str | None = None
+    same_start: bool = False
+
+
+# At each recipe's full width and its JAX run's logging cadence (the column is
+# a mean over the episodes finished since the last record).
+LEARNING_CHECKS = {
+    # examples/train_ntuple_tpu.py 4000 1024 delayed (BASELINE.md:97-99).
+    "ntuple": LearningCheck("train_ntuple", ("40", "1024", "delayed"), "ntuple_tpu", (20, 40), column="avg_episode_score"),
+    "ppo": LearningCheck("train_ppo", ("40", "4096"), "ppo_tpu", (20, 40)),
+    # The fresh-init run, not the recipe's warm-started twin.
+    "afterstate": LearningCheck(
+        "train_afterstate_td", ("50", "8192", "afterstate_td_fresh_cuda"), "afterstate_td_fresh_tpu", (25, 50),
+        tag="afterstate_td_fresh_cuda", same_start=True,
+    ),
+    "a3c": LearningCheck("train_a3c_flagship", ("50", "8192"), "a3c_flagship_tpu", (50,)),
+}
+
+
+def read_curve(path: str | Path) -> dict:
+    """``metrics.csv`` as ``{update: {column: float}}``."""
+    with open(path) as f:
+        return {int(r["update"]): {k: float(v) for k, v in r.items()} for r in csv.DictReader(f)}
+
+
+def compare_curves(ours: dict, theirs: dict, column: str, checks) -> dict:
+    """``column`` of two curves (:func:`read_curve`) at the ``checks``
+    updates: each side's values and mean, the episodes behind ours, and the
+    ratio of the means (ours over theirs). Raises if a curve has no record at
+    a check update."""
+    for name, curve in (("the port's", ours), ("the JAX run's", theirs)):
+        missing = [u for u in checks if u not in curve]
+        if missing:
+            raise KeyError(f"{name} curve has no record at updates {missing} (it has {sorted(curve)})")
+    values = [ours[u][column] for u in checks]
+    jax_values = [theirs[u][column] for u in checks]
+    mean, jax_mean = float(np.mean(values)), float(np.mean(jax_values))
+    return {
+        "values": values, "episodes": [ours[u]["episodes"] for u in checks], "mean": mean,
+        "jax_values": jax_values, "jax_mean": jax_mean, "ratio": mean / jax_mean,
+    }
+
+
+def jax_record(check: LearningCheck, root: str | Path) -> dict:
+    """The JAX run's ``eval.json``."""
+    with open(Path(root) / "runs" / check.jax_run / "eval.json") as f:
+        return json.load(f)
+
+
+def learning_curve(check: LearningCheck, root: str | Path, device, *, configure=None, workdir=None, **caps) -> dict:
+    """Run ``check``'s recipe for its updates and compare its curve with the
+    JAX run's (:func:`compare_curves`).
+
+    The recipe's ``make_config`` is replaced for the run: the config is built
+    at the JAX run's horizon (its ``eval.json``'s ``updates``, where it says),
+    so that a schedule decays as it did there although only ``argv``'s
+    updates are trained, then passed through ``configure`` (e.g. another
+    table backend). Its evaluations are capped by ``caps``
+    (:func:`capped_evaluations`). It runs in ``workdir``, a fresh temporary
+    directory by default, so that no checkpoint is resumed and no donor
+    warm-starts it. Also returns ``config`` (as built, before ``configure``),
+    ``horizon``, ``record`` (what ``main`` returned), both curves (``curve``,
+    ``jax_curve``), ``wall_s`` (``main``, to a fence on a card) and
+    ``train_s`` (the logger's clock at the last check update: init and
+    warm-up included)."""
+    import torch
+
+    recipe = importlib.import_module(f"rein48_tpu_torch.examples.{check.recipe}")
+    reference = jax_record(check, root)
+    horizon = reference.get("updates")
+    make_config, evaluations = recipe.make_config, recipe.evaluations
+    built = []
+
+    def pinned(num_updates, *args):
+        config = make_config(num_updates if horizon is None else horizon, *args)
+        built.append(config)
+        return config if configure is None else configure(config)
+
+    recipe.make_config = pinned
+    recipe.evaluations = capped_evaluations(evaluations, **caps)
+    device = torch.device(device)
+    try:
+        with contextlib.ExitStack() as stack:
+            work = workdir or stack.enter_context(tempfile.TemporaryDirectory())
+            stack.enter_context(contextlib.chdir(work))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            record = recipe.main(list(check.argv), device=device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            ours = read_curve(os.path.join("runs", check.tag or recipe.TAG, "metrics.csv"))
+    finally:
+        recipe.make_config, recipe.evaluations = make_config, evaluations
+    if check.same_start:
+        start, jax_start = record["config"]["warm_start"], reference["config"]["warm_start"]
+        if start != jax_start:
+            raise AssertionError(f"{check.recipe} started from {start!r}, the JAX run from {jax_start!r}")
+    theirs = read_curve(Path(root) / "runs" / check.jax_run / "metrics.csv")
+    return dict(
+        compare_curves(ours, theirs, check.column, check.checks), config=built[0], horizon=horizon, record=record,
+        curve=ours, jax_curve=theirs, wall_s=wall, train_s=ours[max(check.checks)]["wall_time"],
+    )
+
+
+def random_play(device, num_envs: int = 8192, seed: int = 0, max_steps: int = 4096) -> dict:
+    """First-episode stats (``evaluate_search``'s) of uniform-random play over
+    the legal moves (``control.random_legal_policy``) on the port's plain
+    engine: ``num_envs`` episodes, each played to its end."""
+    import torch
+
+    from rein48_tpu_torch.control import random_legal_policy
+    from rein48_tpu_torch.engine import vector
+    from rein48_tpu_torch.train import evaluate
+
+    steps = itertools.count()
+
+    def policy(boards):
+        return random_legal_policy(seed, next(steps), boards)
+
+    with torch.inference_mode():
+        _, stats = evaluate._first_episode_rollout(
+            vector.reset_batch(seed, num_envs, device), policy_fn=policy, num_steps=max_steps, launch_chunk=64,
+            on_chunk=lambda done, so_far: so_far["unfinished"] == 0,
+        )
+    stats = {k: float(v) for k, v in stats.items()}
+    if stats["unfinished"]:
+        raise AssertionError(f"random play left {stats['unfinished']:.0f} of {num_envs} episodes unfinished in {max_steps} steps")
+    return stats

@@ -136,11 +136,25 @@ class Throughput:
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
+def kernel_times(prof) -> tuple[dict, int]:
+    """``({kernel: [device µs, calls]}, launch calls)`` of a finished
+    ``profile`` session: each device event with a duration (kernels, and
+    the runtime's copies and fills) summed by name, and the host's calls
+    that launch a kernel. These are the sums ``prof.key_averages()`` gives,
+    read from the session's raw events: ``key_averages`` first builds a
+    Python object per event, which takes tens of seconds for an update of
+    50-80 k launches."""
+    kernels: dict = {}
+    launches = 0
+    for e in prof.profiler.kineto_results.events():
+        device = e.device_type().name
+        if device == "CPU":
+            launches += e.name().startswith(_LAUNCH_CALLS)
+        elif device == "CUDA" and e.duration_ns() > 0:
+            entry = kernels.setdefault(e.name(), [0.0, 0])
+            entry[0] += e.duration_ns() / 1e3
+            entry[1] += 1
+    return kernels, launches
 
 
 def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dict:
@@ -154,19 +168,17 @@ def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dic
             fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type.name == "CUDA" and _device_us(e) > 0]
-    launch_calls = sum(e.count for e in events if e.device_type.name == "CPU" and e.key.startswith(_LAUNCH_CALLS))
-    device_ms = sum(_device_us(e) for e in kernels) / 1e3 / reps
-    kernels.sort(key=_device_us, reverse=True)
+    kernels, launch_calls = kernel_times(prof)
+    device_ms = sum(us for us, _ in kernels.values()) / 1e3 / reps
+    ranked = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)
     return {
         "wall_ms": round(wall_ms, 4),
         "device_ms": round(device_ms, 6),
         "busy_share": round(device_ms / wall_ms, 4) if wall_ms else None,
         "launches": launch_calls // reps,
         "top": [
-            {"kernel": e.key[:80], "ms": round(_device_us(e) / 1e3 / reps, 6), "calls": e.count // reps}
-            for e in kernels[:top]
+            {"kernel": name[:80], "ms": round(us / 1e3 / reps, 6), "calls": calls // reps}
+            for name, (us, calls) in ranked[:top]
         ],
     }
 

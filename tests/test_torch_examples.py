@@ -9,11 +9,15 @@ defaults); the config it builds and the keyword arguments of each of its
 evaluation calls must equal the port module's ``make_config`` and
 ``evaluations`` at the same defaults, field by field.
 
+The frontier sweeps are read the same way, leg by leg: every config their
+legs build, their budget, legs or batches and the scoring call.
+
 Then every recipe runs on the CPU at a tiny size in a temporary working
 directory, in the order the recipes feed each other (n-tuple training, its
 evaluations; the PPO flagship, its depth-1 evaluation, the afterstate PPO
 warm-started from it, the afterstate TD warm-started from its critic, its
-depth-2 probe; A3C, DQN, the parity curve). Widths are shrunk only by the
+depth-2 probe; A3C, DQN, the parity curve; the two frontier sweeps, at a
+budget of about 0 s). Widths are shrunk only by the
 tests' own replacement of config fields (and of evaluation sizes); each
 ``eval.json`` must have the key set of the committed JAX record, each
 ``metrics.csv`` its header; the warm-started weights at update 0 equal the
@@ -44,6 +48,8 @@ from rein48_tpu_torch.examples import (
     eval_ntuple_depth1,
     eval_ntuple_depth2,
     eval_ppo_depth1,
+    ntuple_frontier,
+    ntuple_frontier_b,
     train_a3c,
     train_a3c_flagship,
     train_afterstate_td,
@@ -163,15 +169,22 @@ def _walk(stmts, names, found):
 
 
 def read_jax_recipe(script: str, argv=()) -> dict:
-    """The configs a JAX script builds and its evaluation calls'
-    keywords, with ``sys.argv`` = ``[script, *argv]``."""
+    """The configs a JAX script builds, its evaluation calls' keywords and
+    the names it bound (``names``), with ``sys.argv`` = ``[script, *argv]``."""
     names = _Names(sys=types.SimpleNamespace(argv=[script, *argv]))
-    found = {"configs": [], "calls": []}
+    found = {"configs": [], "calls": [], "names": names}
     try:
         _walk(ast.parse((REPO / "examples" / script).read_text()).body, names, found)
     except _Exit:
         pass
     return found
+
+
+# JAX config values the port names otherwise, as tests/test_torch_api.py
+# records its differences: (field, JAX value) -> (the port's value, why).
+RENAMED = {
+    ("table_backend", "xla"): ("torch", "the JAX package's plain table backend is the port's 'torch' (agents/ntuple.py)"),
+}
 
 
 def plain(value):
@@ -202,7 +215,16 @@ CASES = {
     "train_dqn": ("train_dqn_tpu.py", (), lambda m, a: (c := m.make_config(*a), m.evaluations(c))),
     "train_dqn_nstep": ("train_dqn_nstep_tpu.py", (), lambda m, a: (c := m.make_config(*a[:5]), m.evaluations(c))),
     "a3c_parity_curve": ("a3c_parity_curve.py", (), lambda m, a: (m.make_config(), [])),
+    # The sweeps: every leg's config, and one scoring call per leg.
+    "ntuple_frontier": ("ntuple_frontier_tpu.py", (), lambda m, a: _legs(m, *a[2:])),
+    "ntuple_frontier-cached": ("ntuple_frontier_tpu.py", ("420", "x.json", "cached", "delayed:4", "step:none"), lambda m, a: _legs(m, *a[2:])),
+    "ntuple_frontier_b": ("ntuple_frontier_b_tpu.py", (), lambda m, a: _legs(m, *a[2:])),
 }
+
+
+def _legs(module, *spec):
+    legs = module.legs(*spec)
+    return [config for _, _, config, _ in legs], [e for _ in legs for e in module.evaluations()]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -212,9 +234,12 @@ def test_recipe_matches_jax_defaults(case):
     jax = read_jax_recipe(script, argv)
     config, plan = port(module, module.parse(list(argv)))
 
-    want = jax["configs"][0]
-    for f in dataclasses.fields(want):
-        assert plain(getattr(config, f.name)) == plain(getattr(want, f.name)), f.name
+    configs, wants = (config, jax["configs"]) if isinstance(config, list) else ([config], jax["configs"][:1])
+    assert len(configs) == len(wants)
+    for config, want in zip(configs, wants):
+        for f in dataclasses.fields(want):
+            theirs = plain(getattr(want, f.name))
+            assert plain(getattr(config, f.name)) == RENAMED.get((f.name, theirs), (theirs,))[0], f.name
     assert len(plan) == len(jax["calls"])
     for (tag, kwargs), (fn, jax_kwargs) in zip(plan, jax["calls"]):
         # What the walk knows (a model, params or callback is the port's own object).
@@ -243,13 +268,43 @@ def test_positional_layout():
     assert train_dqn_nstep.parse(["3", "16", "3", "0.99"]) == [3, 16, 3, 0.99, 1.0, "dqn_r5_cuda"]
 
 
+def test_frontier_defaults_read_from_jax():
+    """The sweeps' budget, legs and batches are the JAX scripts' (read with
+    ``ast``); a leg given as ``mode:window`` replaces them; the clock is read
+    every 20 updates, and every ``max(1, 20480 // B)`` over B."""
+    jax = read_jax_recipe("ntuple_frontier_tpu.py")["names"]
+    budget, out, backend, modes = ntuple_frontier.parse([])
+    assert (budget, modes) == (jax["BUDGET_SEC"], jax["LEGS"]) and out == ntuple_frontier.OUT
+    assert backend == RENAMED[("table_backend", jax["BACKEND"])][0]
+    assert {check for *_, check in ntuple_frontier.legs(backend, modes)} == {20}
+    argv = ("60", "x.json", "cached", "delayed:4", "step:none")
+    jax = read_jax_recipe("ntuple_frontier_tpu.py", argv)["names"]
+    assert ntuple_frontier.parse(list(argv)) == [60.0, "x.json", jax["BACKEND"], jax["LEGS"]]
+
+    jax = read_jax_recipe("ntuple_frontier_b_tpu.py")["names"]
+    budget, out, batches = ntuple_frontier_b.parse([])
+    assert (budget, batches) == (jax["BUDGET_SEC"], jax["BATCHES"]) and out == ntuple_frontier_b.OUT
+    assert [check for *_, check in ntuple_frontier_b.legs(batches)] == [20, 5, 1]
+    assert read_jax_recipe("ntuple_frontier_b_tpu.py", ("60", "x.json", "512"))["names"]["BATCHES"] == (512,)
+    assert ntuple_frontier_b.parse(["60", "x.json", "512"])[2] == (512,)
+
+
+def test_frontier_backend_names():
+    """The JAX name ``xla`` is read as the port's ``"torch"``; the port's own
+    names pass as they are."""
+    for name, port in (("xla", "torch"), ("torch", "torch"), ("cached", "cached"), ("mxu", "mxu"), ("auto", "auto")):
+        assert ntuple_frontier.parse(["1", "x.json", name])[2] == port
+    assert ntuple_frontier.JAX_BACKENDS == {jax: port for (field, jax), (port, _) in RENAMED.items() if field == "table_backend"}
+
+
 def test_recipes_refuse_without_a_card(monkeypatch, tmp_path):
     """No fallback hides the card: with no CUDA and no device named, a
     recipe raises before it writes anything."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        train_ntuple.main(["1"])
+    for module in (train_ntuple, ntuple_frontier, ntuple_frontier_b):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            module.main(["1"])
     assert not any(tmp_path.iterdir())
 
 
@@ -258,6 +313,7 @@ def test_recipes_refuse_without_a_card(monkeypatch, tmp_path):
 SMALL = (("channels", 8), ("num_blocks", 1), ("dtype", torch.float32))
 TINY_TUPLES = ((0, 1, 2, 3), (4, 5, 6, 7))
 TINY_EVAL = dict(num_envs=4, num_steps=8)
+FRONTIER_BUDGET = "0.01"
 
 
 def _shrunk(module, **fields):
@@ -287,12 +343,14 @@ def _shrink(mp):
         train_dqn: dqn,
         train_dqn_nstep: dqn,
         a3c_parity_curve: dict(unroll_len=8),
+        ntuple_frontier: ntuple,
+        ntuple_frontier_b: ntuple,
     }
     for module, fields in shrink.items():
         mp.setattr(module, "make_config", _shrunk(module, **fields))
     for module in (train_ntuple, eval_ntuple, eval_ntuple_depth1, train_ppo, train_ppo_flagship,
                    eval_ppo_depth1, train_ppo_afterstate, train_afterstate_td, train_a3c, train_a3c_flagship, train_dqn,
-                   train_dqn_nstep):
+                   train_dqn_nstep, ntuple_frontier, ntuple_frontier_b):
         mp.setattr(module, "evaluations", capped_evaluations(module.evaluations, **TINY_EVAL))
 
 
@@ -329,11 +387,14 @@ def chain(tmp_path_factory):
                 ("train_dqn", train_dqn, ["3", "8"]),
                 ("train_dqn_nstep", train_dqn_nstep, ["3", "8"]),
                 ("a3c_parity_curve", a3c_parity_curve, ["1", "3"]),
+                # About 0 s a leg: a clock check of 20 tiny updates, and at B=16384 of one.
+                ("ntuple_frontier", ntuple_frontier, [FRONTIER_BUDGET, ntuple_frontier.OUT, "xla", "delayed:4", "step:none"]),
+                ("ntuple_frontier_b", ntuple_frontier_b, [FRONTIER_BUDGET, ntuple_frontier_b.OUT, "16384"]),
             ]
             for name, module, argv in run:
                 out[name] = module.main(argv, device="cpu")
                 if "-" not in name:  # read at once: a later recipe may write the same file
-                    written[name] = {path: _recipe.record_keys(path) for path in getattr(module, "JAX_RECORDS", {})}
+                    written[name] = _recipe.written_keys(module)
         finally:
             os.chdir(cwd)
     return root, out, written
@@ -342,7 +403,7 @@ def chain(tmp_path_factory):
 RECIPES = (
     train_ntuple, eval_ntuple, eval_ntuple_depth1, eval_ntuple_depth2, train_ppo, train_ppo_flagship, eval_ppo_depth1,
     train_ppo_afterstate, train_afterstate_td, eval_afterstate_depth2, train_a3c, train_a3c_flagship, train_dqn,
-    train_dqn_nstep, a3c_parity_curve,
+    train_dqn_nstep, a3c_parity_curve, ntuple_frontier, ntuple_frontier_b,
 )
 WITH_TWIN = [m.__name__.rsplit(".", 1)[1] for m in RECIPES if hasattr(m, "JAX_RECORDS")]
 
@@ -392,6 +453,9 @@ def test_records_beyond_the_keys(chain):
 def test_no_jax_record_is_touched(chain):
     root, _, _ = chain
     assert not [p for p in (root / "runs").iterdir() if p.name.endswith("_tpu") or p.name == "a3c_parity"]
+    # The sweeps write under runs/, never over the JAX records in benchmarks/.
+    assert not (root / "benchmarks").exists()
+    assert {"ntuple_frontier_cuda", "ntuple_frontier_b_cuda"} <= {p.name for p in (root / "runs").iterdir()}
     assert sorted(p.name for p in (root / "ckpt").iterdir()) == [
         "a3c_cuda", "a3c_flagship_cuda", "afterstate_td_cuda", "dqn_cuda_r4", "dqn_r5_cuda", "ntuple_cuda",
         "ppo_afterstate_cuda", "ppo_cuda", "ppo_flagship_cuda",
@@ -440,6 +504,23 @@ def test_afterstate_ppo_needs_its_donor(monkeypatch, tmp_path):
         train_ppo_afterstate.main(["0", "8"], device="cpu")
     out = train_afterstate_td.main(["0", "8"], device="cpu")
     assert out["config"]["warm_start"] == "none (fresh init)" and out["updates"] == 0
+
+
+def test_frontier_records(chain):
+    """Each leg in the order given, its fields first, its updates a whole
+    number of clock checks, its env-steps counted from the trained config,
+    and the record written after the last leg as returned."""
+    root, out, _ = chain
+    for module, heads in ((ntuple_frontier, [("delayed", 4, "torch"), ("step", None, "torch")]),
+                          (ntuple_frontier_b, [(16384, "delayed", 4)])):
+        name = module.__name__.rsplit(".", 1)[1]
+        record = out[name]
+        assert record == _read(root / module.OUT) and record["budget_sec"] == float(FRONTIER_BUDGET)
+        assert [tuple(leg.values())[:3] for leg in record["legs"]] == heads
+        check = 20 if module is ntuple_frontier else 1
+        for leg in record["legs"]:
+            assert leg["updates"] % check == 0 and leg["env_steps"] == leg["updates"] * 8 * 4
+            assert leg["eval"]["episodes"] == TINY_EVAL["num_envs"]
 
 
 def test_dqn_recipe_reaches_learning(chain):

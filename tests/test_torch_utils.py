@@ -95,3 +95,42 @@ def test_enable_nan_debugging_raises_on_a_nan_gradient():
     finally:
         torch.autograd.set_detect_anomaly(before)
     assert np.isnan(torch.sqrt(torch.tensor(-1.0)).item())
+
+
+class _Event:
+    """A raw profiler event as ``kernel_times`` reads it."""
+
+    def __init__(self, name, device, ns):
+        self._name, self._device, self._ns = name, device, ns
+
+    def name(self):
+        return self._name
+
+    def device_type(self):
+        return getattr(torch.autograd.DeviceType, self._device)
+
+    def duration_ns(self):
+        return self._ns
+
+
+def test_kernel_times_sums_device_events_and_counts_launch_calls():
+    """Device events with a duration summed by name (µs, calls); the host's
+    kernel-launch calls counted; every other host event, and a device event
+    without a duration, left out. A session on the CPU alone has neither."""
+    events = [
+        _Event("cudaLaunchKernel", "CPU", 3000), _Event("cuLaunchKernelEx", "CPU", 2000),
+        _Event("aten::add", "CPU", 9000), _Event("cudaDeviceSynchronize", "CPU", 5000),
+        _Event("add_kernel", "CUDA", 1500), _Event("add_kernel", "CUDA", 2500),
+        _Event("Memset (Device)", "CUDA", 700), _Event("marker", "CUDA", 0),
+    ]
+    session = type("Session", (), {})()
+    session.profiler = type("Profiler", (), {})()
+    session.profiler.kineto_results = type("Results", (), {"events": lambda self: events})()
+    assert profiling.kernel_times(session) == ({"add_kernel": [4.0, 2], "Memset (Device)": [0.7, 1]}, 2)
+
+    x = torch.ones(4)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(10):
+            x = x + 1
+    assert profiling.kernel_times(prof) == ({}, 0)
+    assert sum(e.count for e in prof.key_averages() if e.key == "aten::add") == 10
