@@ -111,7 +111,7 @@ Q_BF16_TOL = 0.04
 # it (examples/bench_mxu_trainer_tpu.py:54-60): SJ_2X4 (2 tables of 65,536
 # entries, 8 lookups each), B=1024, 128 steps per update.
 NT_B, NT_T = 1024, 128
-NT_UPDATES = {"step": 8, "delayed": 3}  # step mode's tables are then played
+NT_UPDATES = {"step": 6, "delayed": 2}  # step mode's tables are then played
 NT_EVAL_ENVS, NT_EVAL_STEPS = 512, 600
 NT_D1_ENVS, NT_D1_STEPS = 256, 48
 # The "cached" trainer at the flagship's width and the JAX package's cached
@@ -212,18 +212,23 @@ FRONTIERS = (
 )
 # [capability/<name>]: a recipe's main at its full width, its learning held to
 # the JAX run's recorded curve (rein48_tpu_torch.testing.LEARNING_CHECKS:
-# the argv, the JAX run, the check updates and the column): the mean at the
-# check updates must lie within CAPABILITY_BAND of the JAX run's, and above
-# random play's (measured here, on the plain engine, RANDOM_ENVS first
-# episodes). The n-tuple recipe (YEH_4X6, B=1024, T=128, delayed/4, 40
-# updates; JAX 27,540.1) runs under "auto" (the plain path, as JAX's "xla")
-# and "cached" (the kernels); PPO (40 updates at B=4096; 525.6), the fresh
+# the argv, the JAX run, the check updates and the held columns): the mean of
+# each held column at the check updates must lie within CAPABILITY_BAND of the
+# JAX run's, and a tile sum above random play's (measured here, on the plain
+# engine, RANDOM_ENVS first episodes). The n-tuple recipe (YEH_4X6, B=1024,
+# T=128, delayed/4, 40 updates; JAX 27,540.1) runs under "auto" (the plain
+# path, as JAX's "xla") and "cached" (the kernels); PPO (40 updates at B=4096; 525.6), the fresh
 # afterstate-TD flagship (50 at B=8192; 571.4) and the A3C flagship (50 at
-# B=8192; 519.5) act through the plain engine and launch no kernel. Each
-# config is built at its JAX run's horizon (eval.json's updates), so the
-# schedules decay as they did there.
+# B=8192; 519.5) act through the plain engine and launch no kernel. So do the
+# DQN recipes (300 updates at 4,096 envs x 2 acting steps, the buffer full from
+# update 128), held in q_mean and td_abs at updates 240-300: 1-step 5.434 and
+# 1.033, n-step (n=5, gamma 0.997) 22.981 and 3.193. Each config is built at its
+# JAX run's horizon (eval.json's updates), so the schedules decay as they did
+# there. The columns of CAPABILITY_BESIDE that a check does not hold are
+# logged beside it.
 RANDOM_ENVS = 8192
 CAPABILITY_BAND = (0.7, 1.3)
+CAPABILITY_BESIDE = ("avg_episode_tile_sum", "td_abs_err", "q_mean", "td_abs")
 
 
 def log(phase: str, **fields) -> None:
@@ -2069,7 +2074,7 @@ def replay_cli_phase():
 # flagship afterstate trainer at full width (B=8192 global, T=32, ResNet 64x4
 # bf16, 2 epochs x 4 minibatches), 2 updates; the SJ_2X4 "mxu" trainer at
 # B=1024 global, T=128, step and delayed/4, and "cached" delayed/4 at 128
-# prefix rows of SJ_2X4's 512, 2 updates each; PPO with the critic, A3C and
+# prefix rows of SJ_2X4's 512, one update each; PPO with the critic, A3C and
 # the DQN flagship's learn gate at 1,024 envs in float32, 1-2 updates; the
 # A3C MLP over dp=1 x tp=2, saving at each of its 2 updates, and the
 # flagship afterstate learner (ResNet 64x4 bf16) over dp=1 x tp=2 on
@@ -2078,7 +2083,7 @@ def replay_cli_phase():
 # a fresh pair of ranks; the CLI under torchrun.
 PAR_RANKS = 2
 PAR_CKPT_ENVS = 128
-PAR_AS_UPDATES, PAR_NT_UPDATES = 2, 2
+PAR_AS_UPDATES, PAR_NT_UPDATES = 2, 1
 PAR_FAMILY_ENVS = 1024
 PAR_TIMEOUT_S = 420
 # Every decision of a board on which both runs agree up to then; a near-tie
@@ -2201,8 +2206,8 @@ def par_afterstate(mesh, dev) -> dict:
 def par_ntuple(mesh, dev) -> dict:
     """``train_ntuple`` in each configuration of ``_par_nt_configs``: the
     tables (in logical order) after its first window alone, whose decisions
-    all come from the initial tables, and after 2 updates, with the kernels'
-    launches per update."""
+    all come from the initial tables, and after ``PAR_NT_UPDATES`` updates,
+    with the kernels' launches per update."""
     from rein48_tpu_torch.train import ntuple as nt
 
     def tables(state, cfg):
@@ -2569,7 +2574,7 @@ def parallel_phases(dev, card: str) -> None:
     # The n-tuple trainers. After the first window, whose decisions all come
     # from the initial tables: within 1e-6 + 1e-5 x S of one process, S each
     # table's largest magnitude (the kernels' atomics reassociate the sums).
-    # After 2 updates the ranks' replicas are the same bits; against one
+    # After the updates the ranks' replicas are the same bits; against one
     # process they are reported beside two one-process runs of the card,
     # which part as soon as a reassociated sum turns a tie of mirror-image
     # afterstates the other way.
@@ -2587,7 +2592,7 @@ def parallel_phases(dev, card: str) -> None:
             _same_across_ranks([r["ntuple"] for r in ranks], (name, "first_window"))
         log(f"parallel/ntuple/{name}", B=NT_B, T=NT_T, updates=PAR_NT_UPDATES, first_window_within_tol=ok,
             first_window_max_abs_err=f"{err:.3g}", first_window_err_over_tol=f"{ratio:.3g}",
-            two_updates_err_over_tol=f"{ratio2:.3g}", one_process_twice_err_over_tol=f"{spread_ratio:.3g}",
+            updates_err_over_tol=f"{ratio2:.3g}", one_process_twice_err_over_tol=f"{spread_ratio:.3g}",
             share_of_equal_boards=round(boards_equal, 4), replicated_equal=replicated,
             launches_per_update_per_rank=json.dumps([g["launches_per_update"] for g in got]),
             one_process_launches_per_update=json.dumps(want["launches_per_update"]))
@@ -2809,49 +2814,70 @@ def capability_phase(dev, name: str, random_tile_sum: float | None = None, backe
     """``[capability/<name>]``: the recipe of ``LEARNING_CHECKS[name]`` through
     its ``main`` in a fresh directory (``testing.learning_curve``: the config
     at the JAX run's horizon, the closing evaluations capped as in
-    ``recipes_phase``), its mean at the check updates held to
-    ``CAPABILITY_BAND`` of the JAX run's and above ``random_tile_sum``; under
-    each of ``backends`` (a table backend swapped into the config, the
-    n-tuple recipe's "auto" and "cached"), each run's kernel launches
-    checked."""
+    ``recipes_phase``), the mean of each held column at the check updates
+    within ``CAPABILITY_BAND`` of the JAX run's; a check ``above_random``
+    also above ``random_tile_sum`` (random play, measured here when not
+    given). A DQN check must have filled its buffer before the first check
+    update, and the checkpoint its recipe saved at its end must restore the
+    buffer full, its cursor where ``replay_add`` leaves it. Under each of
+    ``backends`` (a table backend swapped into the config, the n-tuple
+    recipe's "auto" and "cached"), each run's kernel launches checked."""
     from rein48_tpu_torch.testing import LEARNING_CHECKS, learning_curve
 
     check = LEARNING_CHECKS[name]
+    if check.above_random and random_tile_sum is None:
+        random_tile_sum = random_play_phase(dev)
     root = Path(__file__).resolve().parent
     for backend in backends:
         configure = None if backend is None else (lambda c, backend=backend: dataclasses.replace(c, table_backend=backend))
         zero_table_counts()
         result = learning_curve(check, root, dev, configure=configure, num_steps=RECIPE_EVAL_STEPS)
         launches = table_counts()
-        config, curve, checks = result["config"], result["curve"], check.checks
+        config, curve, jax_curve, checks = result["config"], result["curve"], result["jax_curve"], check.checks
         updates = int(check.argv[0])
-        steps = getattr(config, "unroll_len", None) or config.steps_per_update
-        env_steps = updates * config.batch_size * steps
-        row = dict(argv=" ".join(check.argv), horizon=result["horizon"], B=config.batch_size, T=steps, updates=updates)
+        B = config.num_envs if hasattr(config, "num_envs") else config.batch_size
+        T = next(getattr(config, k) for k in ("unroll_len", "steps_per_update", "acting_steps_per_update") if hasattr(config, k))
+        row = dict(argv=" ".join(check.argv), horizon=result["horizon"], B=B, T=T, updates=updates)
         if backend is not None:
             config = configure(config)
             row.update(backend=backend, resolved=config.network_config(dev).backend)
         row.update({
             "main_wall_s": round(result["wall_s"], 2), "train_s": round(result["train_s"], 2),
-            "env_steps_per_s": round(env_steps / result["train_s"], 1),
-            check.column: [round(v, 1) for v in result["values"]], "episodes": result["episodes"],
-            "mean": round(result["mean"], 1), "jax_mean": round(result["jax_mean"], 1), "ratio": round(result["ratio"], 4),
-            "band": CAPABILITY_BAND,
+            "ms_per_update": round(1e3 * result["train_s"] / max(checks), 1),
+            "env_steps_per_s": round(updates * B * T / result["train_s"], 1),
+            check.column: [_rounded(v) for v in result["values"]], "episodes": result["episodes"],
+            "mean": _rounded(result["mean"]), "jax_mean": _rounded(result["jax_mean"]), "ratio": round(result["ratio"], 4),
         })
-        if "td_abs_err" in curve[checks[0]]:
-            jax_curve = result["jax_curve"]
-            row.update(td_abs_err=[round(curve[u]["td_abs_err"], 1) for u in checks],
-                       jax_td_abs_err=[round(jax_curve[u]["td_abs_err"], 1) for u in checks])
+        ratios = {check.column: result["ratio"]}
+        for col, held in result.get("also", {}).items():
+            ratios[col] = held["ratio"]
+            row.update({col: [_rounded(v) for v in held["values"]], f"{col}_mean": _rounded(held["mean"]),
+                        f"{col}_jax_mean": _rounded(held["jax_mean"]), f"{col}_ratio": round(held["ratio"], 4)})
+        row["band"] = CAPABILITY_BAND
+        for col in CAPABILITY_BESIDE:
+            if col not in ratios and col in curve[checks[0]] and col in jax_curve[checks[0]]:
+                row.update({col: [_rounded(curve[u][col]) for u in checks], f"jax_{col}": [_rounded(jax_curve[u][col]) for u in checks]})
         if random_tile_sum is not None:
             row["random_tile_sum"] = round(random_tile_sum, 2)
+        saved = result.get("replay")
+        if saved is not None:
+            first = curve[checks[0]]
+            row.update(replay_size_at_first_check=first["replay_size"], epsilon_at_first_check=round(first["epsilon"], 5),
+                       restored=json.dumps(saved))
         if check.same_start:
             row["warm_start"] = json.dumps(result["record"]["config"]["warm_start"])
         log(f"capability/{name}", **row, launches=json.dumps({k: v for k, v in launches.items() if v}))
-        if not CAPABILITY_BAND[0] <= result["ratio"] <= CAPABILITY_BAND[1]:
-            raise AssertionError(f"{check.recipe}{'' if backend is None else f' under {backend!r}'} has {check.column} "
-                                 f"{result['mean']:.1f} at updates {list(checks)}, the JAX run {result['jax_mean']:.1f}")
-        if random_tile_sum is not None and result["mean"] <= random_tile_sum:
+        run = f"{check.recipe}{'' if backend is None else f' under {backend!r}'}"
+        for col, ratio in ratios.items():
+            if not CAPABILITY_BAND[0] <= ratio <= CAPABILITY_BAND[1]:
+                raise AssertionError(f"{run} has {col} at {ratio:.4f} of the JAX run's at updates {list(checks)}")
+        if check.above_random and result["mean"] <= random_tile_sum:
             raise AssertionError(f"{check.recipe} plays no better than random: {result['mean']:.1f} <= {random_tile_sum:.1f}")
+        if saved is not None and not (
+            first["replay_size"] == saved["capacity"] == saved["size"] and saved["cursor"] == saved["expected_cursor"]
+            and saved["update_step"] == updates
+        ):
+            raise AssertionError(f"{run}: buffer of {first['replay_size']:.0f} slots at update {checks[0]}, restored {saved}")
         # Under "cached" the learning run launches both kernels on every update
         # (the closing evaluations may add launches of their own); every other
         # run launches none.
@@ -2860,7 +2886,12 @@ def capability_phase(dev, name: str, random_tile_sum: float | None = None, backe
         if backend is not None and row["resolved"] != ("cached" if kernels else "torch"):
             raise AssertionError(f"the {backend!r} run resolved to {row['resolved']}")
         if launched != kernels or any(launches[k] < updates for k in kernels):
-            raise AssertionError(f"{check.recipe}{'' if backend is None else f' under {backend!r}'} launched {launches} in {updates} updates")
+            raise AssertionError(f"{run} launched {launches} in {updates} updates")
+
+
+def _rounded(v: float) -> float:
+    """Tile sums and scores to 0.1, Q-values and TD errors to 1e-4."""
+    return round(v, 1) if abs(v) >= 100 else round(v, 4)
 
 
 def main() -> int:
@@ -3175,6 +3206,14 @@ def main() -> int:
         capability_phase(dev, name, random_tile_sum)
         torch.cuda.empty_cache()
     lap("capability: PPO, afterstate TD and A3C against JAX's curves")
+    # 48-49. DQN's learning past the first wrap of its 2**20-slot buffer, 1-step
+    # and n-step: Q-values and TD errors against the JAX runs', the buffer
+    # full before the first check, the saved cursor. No kernel of the port
+    # is on these paths.
+    for name in ("dqn", "dqn_nstep"):
+        capability_phase(dev, name, random_tile_sum)
+        torch.cuda.empty_cache()
+    lap("capability: DQN and n-step DQN against JAX's curves")
     # Last, after every other reading: a profiled update leaves the profiler
     # with 80 k launches, which has shifted later readings.
     value_launches = value_launches_phase(sj_trained, dev)

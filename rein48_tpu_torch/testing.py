@@ -77,9 +77,12 @@ class LearningCheck:
 
     ``recipe`` (a module of ``rein48_tpu_torch.examples``) runs
     ``main(argv)``; its ``runs/<tag>/metrics.csv`` (``tag`` the module's
-    ``TAG`` unless named) is read in ``column`` at the ``checks`` updates,
-    beside ``runs/<jax_run>/metrics.csv``. ``same_start``: the record's
-    ``config.warm_start`` must be the JAX run's (its ``eval.json``'s).
+    ``TAG`` unless named) is read in ``column`` and the ``also`` columns at
+    the ``checks`` updates, beside ``runs/<jax_run>/metrics.csv``, and each
+    of those columns is held to the JAX run's. ``above_random``: ``column``
+    (a tile sum) must also beat uniform-random play's. ``same_start``: the
+    record's ``config.warm_start`` must be the JAX run's (its
+    ``eval.json``'s).
     """
 
     recipe: str
@@ -87,47 +90,109 @@ class LearningCheck:
     jax_run: str
     checks: tuple
     column: str = "avg_episode_tile_sum"
+    also: tuple = ()
+    above_random: bool = False
     tag: str | None = None
     same_start: bool = False
 
 
-# At each recipe's full width and its JAX run's logging cadence (the column is
-# a mean over the episodes finished since the last record).
+# At each recipe's full width and its JAX run's logging cadence. A record
+# holds the metrics of the update it was logged at, in JAX as here: the
+# episode columns are means over the episodes that update's acting ended, and
+# DQN's ``q_mean`` and ``td_abs`` means over its learn batch (8,192 samples).
 LEARNING_CHECKS = {
     # examples/train_ntuple_tpu.py 4000 1024 delayed (BASELINE.md:97-99).
     "ntuple": LearningCheck("train_ntuple", ("40", "1024", "delayed"), "ntuple_tpu", (20, 40), column="avg_episode_score"),
-    "ppo": LearningCheck("train_ppo", ("40", "4096"), "ppo_tpu", (20, 40)),
+    "ppo": LearningCheck("train_ppo", ("40", "4096"), "ppo_tpu", (20, 40), above_random=True),
     # The fresh-init run, not the recipe's warm-started twin.
     "afterstate": LearningCheck(
         "train_afterstate_td", ("50", "8192", "afterstate_td_fresh_cuda"), "afterstate_td_fresh_tpu", (25, 50),
-        tag="afterstate_td_fresh_cuda", same_start=True,
+        above_random=True, tag="afterstate_td_fresh_cuda", same_start=True,
     ),
-    "a3c": LearningCheck("train_a3c_flagship", ("50", "8192"), "a3c_flagship_tpu", (50,)),
+    "a3c": LearningCheck("train_a3c_flagship", ("50", "8192"), "a3c_flagship_tpu", (50,), above_random=True),
+    # After the first wrap of the 2**20-slot buffer (update 128 at 4,096 envs
+    # x 2 acting steps). Epsilon is still 0.76 at update 300, so the scores
+    # are near random play's; the Q columns tell the targets apart.
+    "dqn": LearningCheck("train_dqn", ("300", "4096"), "dqn_tpu", (240, 260, 280, 300), column="q_mean", also=("td_abs",)),
+    "dqn_nstep": LearningCheck(
+        "train_dqn_nstep", ("300", "4096", "5", "0.997", "1.0"), "dqn_r5_tpu", (240, 260, 280, 300), column="q_mean",
+        also=("td_abs",),
+    ),
+    # Longer runs, made once each on the card, not by chip_smoke.py.
+    "dqn_long": LearningCheck("train_dqn", ("1000", "4096"), "dqn_tpu", tuple(range(900, 1001, 20)), above_random=True),
+    "dqn_nstep_long": LearningCheck(
+        "train_dqn_nstep", ("1600", "4096", "5", "0.997", "1.0"), "dqn_r5_tpu", tuple(range(1500, 1601, 20)),
+        above_random=True,
+    ),
+    "ppo_flagship": LearningCheck("train_ppo_flagship", ("50", "8192"), "ppo_flagship_tpu", (25, 50), above_random=True),
 }
 
 
 def read_curve(path: str | Path) -> dict:
-    """``metrics.csv`` as ``{update: {column: float}}``."""
+    """The last run of a ``metrics.csv``, as ``{update: {column: float}}``.
+
+    A file may hold several runs one after another. Where ``update`` falls
+    to the file's first update or below it, a run started again from
+    nothing: only the rows from the last such start are read. A fall to a
+    later update is a run resumed from a checkpoint: the rows before it
+    stay, and its rows replace those of the updates it repeats.
+    """
     with open(path) as f:
-        return {int(r["update"]): {k: float(v) for k, v in r.items()} for r in csv.DictReader(f)}
+        rows = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+    curve: dict = {}
+    for row in rows:
+        update = int(row["update"])
+        if update <= rows[0]["update"]:
+            curve = {}
+        curve[update] = row
+    return curve
 
 
-def compare_curves(ours: dict, theirs: dict, column: str, checks) -> dict:
+def compare_curves(ours: dict, theirs: dict, column: str, checks, also=()) -> dict:
     """``column`` of two curves (:func:`read_curve`) at the ``checks``
     updates: each side's values and mean, the episodes behind ours, and the
-    ratio of the means (ours over theirs). Raises if a curve has no record at
-    a check update."""
+    ratio of the means (ours over theirs); with ``also``, each of those
+    columns' values, means and ratio under ``"also"``. Raises if a curve has
+    no record at a check update."""
     for name, curve in (("the port's", ours), ("the JAX run's", theirs)):
         missing = [u for u in checks if u not in curve]
         if missing:
             raise KeyError(f"{name} curve has no record at updates {missing} (it has {sorted(curve)})")
-    values = [ours[u][column] for u in checks]
-    jax_values = [theirs[u][column] for u in checks]
-    mean, jax_mean = float(np.mean(values)), float(np.mean(jax_values))
-    return {
-        "values": values, "episodes": [ours[u]["episodes"] for u in checks], "mean": mean,
-        "jax_values": jax_values, "jax_mean": jax_mean, "ratio": mean / jax_mean,
+
+    def held(col):
+        values, jax_values = [ours[u][col] for u in checks], [theirs[u][col] for u in checks]
+        mean, jax_mean = float(np.mean(values)), float(np.mean(jax_values))
+        return {"values": values, "mean": mean, "jax_values": jax_values, "jax_mean": jax_mean, "ratio": mean / jax_mean}
+
+    first = held(column)
+    out = {
+        "values": first["values"], "episodes": [ours[u]["episodes"] for u in checks], "mean": first["mean"],
+        "jax_values": first["jax_values"], "jax_mean": first["jax_mean"], "ratio": first["ratio"],
     }
+    if also:
+        out["also"] = {col: held(col) for col in also}
+    return out
+
+
+def replay_cursor(config, updates: int) -> int:
+    """Where ``updates`` DQN updates from an empty buffer leave its cursor,
+    in slots: each acting step adds ``num_envs`` transitions at the cursor
+    and moves it on modulo the capacity (JAX's ``replay_add``)."""
+    return updates * config.acting_steps_per_update * config.num_envs % config.replay_capacity
+
+
+def saved_replay(config, directory: str | Path, device) -> dict:
+    """The last checkpoint in ``directory`` of a DQN run with ``config``,
+    restored into a fresh trainer state: its ``update_step``,
+    ``env_steps`` and the buffer's ``cursor``, ``size`` and ``capacity``."""
+    from rein48_tpu_torch.train.dqn import init_dqn
+    from rein48_tpu_torch.utils.checkpoint import Checkpointer
+
+    state, _, _ = init_dqn(config, 0, device)
+    state = Checkpointer(str(directory)).restore(state)
+    replay = state.replay
+    return dict(update_step=state.update_step, env_steps=state.env_steps, cursor=replay.cursor, size=replay.size,
+                capacity=replay.capacity)
 
 
 def jax_record(check: LearningCheck, root: str | Path) -> dict:
@@ -151,19 +216,24 @@ def learning_curve(check: LearningCheck, root: str | Path, device, *, configure=
     ``horizon``, ``record`` (what ``main`` returned), both curves (``curve``,
     ``jax_curve``), ``wall_s`` (``main``, to a fence on a card) and
     ``train_s`` (the logger's clock at the last check update: init and
-    warm-up included)."""
+    warm-up included). A DQN recipe's run also returns ``replay``, the
+    checkpoint it saved at its end as :func:`saved_replay` restores it,
+    with ``expected_cursor`` (:func:`replay_cursor`)."""
     import torch
+
+    from rein48_tpu_torch.train.dqn import DQNConfig
 
     recipe = importlib.import_module(f"rein48_tpu_torch.examples.{check.recipe}")
     reference = jax_record(check, root)
     horizon = reference.get("updates")
     make_config, evaluations = recipe.make_config, recipe.evaluations
-    built = []
+    built, configured = [], []
 
     def pinned(num_updates, *args):
         config = make_config(num_updates if horizon is None else horizon, *args)
         built.append(config)
-        return config if configure is None else configure(config)
+        configured.append(config if configure is None else configure(config))
+        return configured[-1]
 
     recipe.make_config = pinned
     recipe.evaluations = capped_evaluations(evaluations, **caps)
@@ -180,6 +250,12 @@ def learning_curve(check: LearningCheck, root: str | Path, device, *, configure=
                 torch.cuda.synchronize(device)
             wall = time.perf_counter() - t0
             ours = read_curve(os.path.join("runs", check.tag or recipe.TAG, "metrics.csv"))
+            extra = {}
+            if isinstance(configured[0], DQNConfig):
+                ckpt = os.path.join("ckpt", getattr(recipe, "CKPT", check.tag or recipe.TAG))
+                updates = int(check.argv[0])
+                extra["replay"] = dict(saved_replay(configured[0], ckpt, device),
+                                       expected_cursor=replay_cursor(configured[0], updates))
     finally:
         recipe.make_config, recipe.evaluations = make_config, evaluations
     if check.same_start:
@@ -188,8 +264,8 @@ def learning_curve(check: LearningCheck, root: str | Path, device, *, configure=
             raise AssertionError(f"{check.recipe} started from {start!r}, the JAX run from {jax_start!r}")
     theirs = read_curve(Path(root) / "runs" / check.jax_run / "metrics.csv")
     return dict(
-        compare_curves(ours, theirs, check.column, check.checks), config=built[0], horizon=horizon, record=record,
-        curve=ours, jax_curve=theirs, wall_s=wall, train_s=ours[max(check.checks)]["wall_time"],
+        compare_curves(ours, theirs, check.column, check.checks, check.also), config=built[0], horizon=horizon,
+        record=record, curve=ours, jax_curve=theirs, wall_s=wall, train_s=ours[max(check.checks)]["wall_time"], **extra,
     )
 
 
