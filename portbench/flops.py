@@ -1,0 +1,44 @@
+"""Model operations counted from shapes, and the card's peak.
+
+A 3x3 SAME convolution on the 4x4 board reads, per output cell, only the
+taps that land inside the board: 4 at a corner, 6 on an edge, 9 inside, so
+100 of the 144 taps per channel pair. At 2 operations per multiply-add a
+``ResNetPolicy(64, 4)`` forward of one board costs
+
+* stem ``2 * 100 * 16 * 64`` = 204,800;
+* eight block convolutions ``8 * 2 * 100 * 64 * 64`` = 6,553,600;
+* heads ``2 * (1024 * 64 + 64 * 4 + 1024 * 64 + 64)`` = 262,784;
+
+7,021,184 in all. Counting all 144 taps, padding included, gives
+9,994,880. Biases, norms and activations are not counted.
+"""
+
+from __future__ import annotations
+
+# Dense bf16 tensor-core rate of one H100 SXM at 700 W (NVIDIA's data sheet:
+# 1,979 TFLOP/s with sparsity, half of it dense).
+PEAK_BF16 = 989e12
+
+
+def conv_taps(padded: bool = False) -> int:
+    """Taps of a 3x3 SAME convolution over the 4x4 board, summed over the
+    output cells: those inside the board, or all of them."""
+    if padded:
+        return 16 * 9
+    span = [min(i + 1, 3) - max(i - 1, 0) + 1 for i in range(4)]  # rows (or columns) each cell reaches
+    return sum(r * c for r in span for c in span)
+
+
+def resnet_forward(channels: int = 64, blocks: int = 4, padded: bool = False) -> int:
+    """Operations of one board's forward pass (16 one-hot input planes)."""
+    taps = conv_taps(padded=padded)
+    convs = 2 * taps * 16 * channels + 2 * blocks * 2 * taps * channels * channels
+    flat = 16 * channels
+    heads = 2 * (flat * channels + channels * 4 + flat * channels + channels * 1)
+    return convs + heads
+
+
+def ppo_per_frame(epochs: int) -> int:
+    """Forward-equivalents per env step of a PPO update: one acting
+    forward, and per epoch a forward and a backward (two forwards' worth)."""
+    return 1 + 3 * epochs
