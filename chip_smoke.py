@@ -377,16 +377,40 @@ def floor_phase(dev) -> float:
     return f["ms"]
 
 
-def zero_table_counts() -> None:
-    """Set the launch counts of the table and value modules and the cached
-    window branch counts to 0."""
-    from rein48_tpu_torch.agents import ntuple
-    from rein48_tpu_torch.ops import hbm_tables, tables
-    from rein48_tpu_torch.ops import ntuple_value as value_ops
+# The launch counters of the table and value kernels in the port's registry
+# (``utils/profiling.counters``), by the names this script reports them under.
+TABLE_COUNTERS = {
+    "table_gather": "tables.table_gather", "table_scatter": "tables.table_scatter",
+    "cached_gather": "hbm_tables.cached_gather", "cached_scatter": "hbm_tables.cached_scatter",
+    "ntuple_value": "ntuple_value.launches",
+}
+# The "cached" backend's delayed windows by branch.
+WINDOW_COUNTERS = {"fast": "ntuple.cached_fast", "fallback": "ntuple.cached_fallback"}
+ROLLOUT_COUNTER = "fused.rollout_launches"
 
-    for counts in (tables.launches, hbm_tables.launches, value_ops.launches, ntuple.cached_windows):
-        for k in counts:
-            counts[k] = 0
+
+def counter(name: str) -> int:
+    from rein48_tpu_torch.utils import profiling
+
+    return profiling.counters.get(name, 0)
+
+
+def set_counter(name: str, value: int) -> None:
+    from rein48_tpu_torch.utils import profiling
+
+    profiling.counters[name] = value
+
+
+def zero_table_counts() -> None:
+    """Set the launch counts of the table and value kernels and the cached
+    window branch counts to 0."""
+    for name in (*TABLE_COUNTERS.values(), *WINDOW_COUNTERS.values()):
+        set_counter(name, 0)
+
+
+def cached_windows() -> dict:
+    """The cached backend's delayed windows by branch."""
+    return {k: counter(name) for k, name in WINDOW_COUNTERS.items()}
 
 
 def close_tables(got, want, scales) -> tuple[bool, float, float]:
@@ -434,11 +458,8 @@ class Clock:
 
 
 def table_counts() -> dict:
-    """The launch counts of the table and value modules."""
-    from rein48_tpu_torch.ops import hbm_tables, tables
-    from rein48_tpu_torch.ops import ntuple_value as value_ops
-
-    return {**tables.launches, **hbm_tables.launches, **value_ops.launches}
+    """The launch counts of the table and value kernels."""
+    return {k: counter(name) for k, name in TABLE_COUNTERS.items()}
 
 
 def check_values(net, plain, params, plain_params, boards) -> dict:
@@ -1017,7 +1038,6 @@ def cached_network_phase(state, net, window):
     the same tables unpermuted: value within the scaled tolerance (the fused
     kernel bit-equal to its plain version beside it), and the delayed TC
     update within the scaled tolerance on both branches."""
-    from rein48_tpu_torch.agents import ntuple
     from rein48_tpu_torch.ops import hbm_tables
     from rein48_tpu_torch.train import ntuple as nt
 
@@ -1033,9 +1053,9 @@ def cached_network_phase(state, net, window):
         # The trainer's capacity, and one that holds a whole block: never overflows.
         for rows in (net.config.cold_capacity_rows, hbm_tables.G_BLK):
             cached = nt.get_network(dataclasses.replace(net.config, cold_capacity_rows=rows))
-            before = dict(ntuple.cached_windows)
+            before = cached_windows()
             a = cached.td_apply_delayed({k: v.clone() for k, v in state.params.items()}, boards, errs, 1.0)
-            branches = {k: ntuple.cached_windows[k] - before[k] for k in before}
+            branches = {k: v - before[k] for k, v in cached_windows().items()}
             got = logical_tables(a)
             ok_k, err_k, ratio = close_tables([got[k] for k in b], [b[k] for k in b], [scale[k] for k in b])
             log("hbm/cached-vs-torch", fn="td_apply_delayed(tc=True)", cold_capacity_rows=rows, branches=json.dumps(branches),
@@ -1068,7 +1088,7 @@ def cached_trainer_phase(dev):
             zero_table_counts()
             torch.cuda.reset_peak_memory_stats(dev)
             state, history = nt.train_ntuple(cfg, updates, seed=SEED, log_every=1, logger=clock, device=dev)
-            counts, windows = table_counts(), dict(ntuple.cached_windows)
+            counts, windows = table_counts(), cached_windows()
             # Per env step: one fused value call for the afterstates and one
             # for prev_after, no standalone gather; per window ("delayed"),
             # one scatter per table; "step" scatters nothing.
@@ -1180,9 +1200,7 @@ def run_cli(argv) -> dict:
 
 def kernel_launches() -> dict:
     """Every launch count of the port's kernels."""
-    from rein48_tpu_torch.engine import fused
-
-    return {"rollout": fused.launches, **table_counts()}
+    return {"rollout": counter(ROLLOUT_COUNTER), **table_counts()}
 
 
 def afterstate_config():
@@ -2145,7 +2163,7 @@ def par_rollout(mesh, dev) -> dict:
     if mesh is not None:
         lo = mesh_lib.batch_slice(mesh, BENCH_B).start
         state = mesh_lib.shard_env_state(state, mesh)
-    before = fused.launches
+    before = counter(ROLLOUT_COUNTER)
     final, stats = fused.rollout_random_fused(state, SEED + 6, BENCH_T, env_base=lo)
     ms = cuda_ms(lambda: fused.rollout_random_fused(state, SEED + 6, BENCH_T, env_base=lo), reps=3)
     fields = [f.name for f in dataclasses.fields(stats)]
@@ -2154,7 +2172,7 @@ def par_rollout(mesh, dev) -> dict:
     if mesh is not None:
         table = spmd.all_gather(sums, mesh.dp_group)
         sums = torch.cat([table[:, :-1].sum(0), table[:, -1:].amax(0)])
-    return {"boards": _host(final.boards), "stats": _host(sums), "ms": ms, "launches": fused.launches - before}
+    return {"boards": _host(final.boards), "stats": _host(sums), "ms": ms, "launches": counter(ROLLOUT_COUNTER) - before}
 
 
 def par_afterstate(mesh, dev) -> dict:
@@ -2706,7 +2724,6 @@ def recipes_phase(dev) -> None:
     """``[recipes/<module>]``: every recipe's ``main`` at its full widths in
     one temporary working directory (``RECIPES``), its records checked
     against the keys of the JAX recipe's (``_recipe.jax_keys``)."""
-    from rein48_tpu_torch.engine import fused
     from rein48_tpu_torch.examples import _recipe
     from rein48_tpu_torch.testing import capped_evaluations
 
@@ -2719,7 +2736,7 @@ def recipes_phase(dev) -> None:
                 module.evaluations = capped_evaluations(saved, num_steps=RECIPE_EVAL_STEPS)
             torch.cuda.reset_peak_memory_stats(dev)
             zero_table_counts()
-            fused.launches = 0
+            set_counter(ROLLOUT_COUNTER, 0)
             t0 = time.perf_counter()
             try:
                 out = module.main(argv, device=dev)
@@ -2958,17 +2975,17 @@ def main() -> int:
     a3c_parity_phase(dev, at="first")
     lap("build, rollout kernel checks, A3C parity first")
     # 4-5. The main paths, through their entry points, with the counts at 0.
-    fused.launches = 0
+    set_counter(ROLLOUT_COUNTER, 0)
     bench = run_cli(["bench", "--batch", str(BENCH_B), "--unroll", str(BENCH_T), "--rounds", str(BENCH_ROUNDS)])
     if bench["engine"] != "fused" or bench["value"] <= 0:
         raise AssertionError(f"bench did not run the kernel: {bench}")
     log(
         "bench", engine=bench["engine"], B=BENCH_B, T=BENCH_T, rounds=BENCH_ROUNDS,
         steps_per_s=bench["value"], median_steps_per_s=bench["median"],
-        ms_per_launch=bench["ms_per_launch"], launches=fused.launches,
+        ms_per_launch=bench["ms_per_launch"], launches=counter(ROLLOUT_COUNTER),
     )
-    if fused.launches != BENCH_ROUNDS + 1:  # a warm-up and one launch per round
-        raise AssertionError(f"bench launched {fused.launches} rollout kernels, not {BENCH_ROUNDS + 1}")
+    if counter(ROLLOUT_COUNTER) != BENCH_ROUNDS + 1:  # a warm-up and one launch per round
+        raise AssertionError(f"bench launched {counter(ROLLOUT_COUNTER)} rollout kernels, not {BENCH_ROUNDS + 1}")
     plain_bench = run_cli(["bench", "--engine", "plain", "--batch", str(BENCH_B), "--unroll", "64", "--rounds", "2"])
     log("bench/plain-engine", B=BENCH_B, T=64, steps_per_s=plain_bench["value"], ms_per_round=plain_bench["ms_per_launch"])
 
@@ -2996,7 +3013,7 @@ def main() -> int:
             us_per_env_step=[round(1e6 * w / (steps * envs), 3) for w in walls],
             stats=json.dumps({k: round(v, 3) for k, v in stats.items()}),
         )
-    launches = fused.launches
+    launches = counter(ROLLOUT_COUNTER)
     if launches <= 0:
         raise AssertionError("the bench path launched no rollout kernel")
 
@@ -3041,10 +3058,10 @@ def main() -> int:
     # its time, the plain version's, its bound from the work of an env-step,
     # and this design's own instruction counts.
     state = vector.reset_batch(SEED + 4, BENCH_B, dev)
-    saved = fused.launches
+    saved = counter(ROLLOUT_COUNTER)
     got = fused.rollout_random_fused(state, 2, BENCH_T)  # also the warm-up
     ms = cuda_ms(lambda: fused.rollout_random_fused(state, 2, BENCH_T), reps=10)
-    fused.launches = saved
+    set_counter(ROLLOUT_COUNTER, saved)
     plain = []
     plain_ms = cuda_ms(lambda: plain.append(fused.rollout_random_reference(state, 2, BENCH_T)))
     err_bench = rollout_max_err(got, plain[0])

@@ -1,0 +1,11 @@
+"""Share of the ``ppo.rollout`` spans' device-clock time in which none of
+the operations they launched ran on the device, in %: 1 minus the busy time
+per update inside the annotations of the profiled segment over the span's
+device-clock duration per update in the unprofiled one."""
+
+from portbench import program_trace
+
+
+def read(ctx):
+    rec = program_trace.record(ctx)
+    return None if rec is None else program_trace.idle_share(rec, "ppo.rollout")

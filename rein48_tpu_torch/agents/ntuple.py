@@ -49,6 +49,7 @@ from rein48_tpu_torch.engine import core
 from rein48_tpu_torch.ops import hbm_tables
 from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.ops import tables as table_ops
+from rein48_tpu_torch.utils import profiling
 
 BASE = core.MAX_EXPONENT + 1  # exponents 0..15 -> base-16 digits
 
@@ -75,11 +76,6 @@ TINY_2X3 = (
 )
 
 BACKENDS = ("torch", "mxu", "cached")
-
-# Delayed windows of the "cached" backend per branch, since the counts were
-# last set to 0: "fast" took the kernel's hot statistics and cold residue,
-# "fallback" the dense path after a cold residue overflowed.
-cached_windows = {"fast": 0, "fallback": 0}
 
 
 def _symmetry_maps() -> np.ndarray:
@@ -440,7 +436,9 @@ class NTupleNetwork:
         elements overflowed its capacity, the window takes the dense path
         on physical ids instead: JAX picks the branch on the device
         (``lax.cond``), the port reads the flag on the host, one sync per
-        table per window. ``cached_windows`` counts the branches.
+        table per window. The counters ``ntuple.cached_fast`` and
+        ``ntuple.cached_fallback`` (``utils/profiling.counters``) count the
+        branches.
         """
         K = self.prefix_rows[i]
         w = params[f"t{i}"]
@@ -457,7 +455,7 @@ class NTupleNetwork:
             params[f"t{i}_hot"], ids, d, prefix_rows=K, cold_capacity_rows=self.config.cold_capacity_rows
         )
         if bool(overflow):
-            cached_windows["fallback"] += 1
+            profiling.count("ntuple.cached_fallback")
             f_es, f_ab, f_h = self._stats(w.shape[0], self.physical_ids(params, i, ids), d)
             gain = 1.0 - torch.pow(1.0 - step_at(slice(None)), f_h)
             w.add_(gain * scale * (f_es / torch.clamp(f_h, min=1.0)))
@@ -465,7 +463,7 @@ class NTupleNetwork:
                 e_acc.add_(f_es)
                 a_acc.add_(f_ab)
             return
-        cached_windows["fast"] += 1
+        profiling.count("ntuple.cached_fast")
         pe = K * hbm_tables.ROW
         es, ab, h = err_sum.reshape(-1), abs_sum.reshape(-1), hits.reshape(-1)
         gain = 1.0 - torch.pow(1.0 - step_at(slice(0, pe)), h)

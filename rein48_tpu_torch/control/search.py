@@ -21,6 +21,7 @@ import torch
 
 from rein48_tpu_torch.engine import core
 from rein48_tpu_torch.train import common
+from rein48_tpu_torch.utils import profiling
 
 NUM_ACTIONS = core.NUM_ACTIONS
 NUM_CELLS = core.NUM_CELLS
@@ -167,12 +168,13 @@ def make_expectimax_policy(
     With a value net as the leaf (:func:`make_value_leaf`), pass the
     critic's ``reward_fn`` and ``gamma``, and ``death_value=0.0`` (trainers
     bootstrap V=0 at done); see the JAX docstring for why the leaf should
-    be an afterstate value function.
+    be an afterstate value function. Each call is one ``search.policy`` span.
     """
 
     def policy(boards: torch.Tensor) -> torch.Tensor:
-        q, legal = _action_values(boards, depth, leaf_value, reward_fn, gamma, death_value, chance_chunk)
-        return _argmax_legal(q, legal)
+        with profiling.span("search.policy"):
+            q, legal = _action_values(boards, depth, leaf_value, reward_fn, gamma, death_value, chance_chunk)
+            return _argmax_legal(q, legal)
 
     return policy
 
@@ -182,13 +184,16 @@ def make_value_leaf(model, obs_encoding: str = "onehot"):
 
     Accepts the search's ``[..., 4, 4]`` board tensors of any leading rank:
     they are flattened to one batch for the network (``B * 4 * 32 * 4``
-    boards at depth 1) and the values reshaped back.
+    boards at depth 1) and the values reshaped back. Each call is one
+    ``search.leaf`` span and counts its boards in ``search.leaf_boards``.
     """
 
     def leaf_value(boards: torch.Tensor) -> torch.Tensor:
-        lead = boards.shape[:-2]
-        obs = common.encode_obs(boards.reshape((-1,) + boards.shape[-2:]), obs_encoding)
-        _, value = model(obs)
-        return value.reshape(lead)
+        with profiling.span("search.leaf"):
+            lead = boards.shape[:-2]
+            flat = boards.reshape((-1,) + boards.shape[-2:])
+            profiling.count("search.leaf_boards", flat.shape[0])
+            _, value = model(common.encode_obs(flat, obs_encoding))
+            return value.reshape(lead)
 
     return leaf_value

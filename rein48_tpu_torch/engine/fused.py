@@ -15,7 +15,8 @@ read once at entry and written once at exit.
 :func:`rollout_random_fused` is the wrapper. A CUDA state launches the
 kernel; a CPU state runs the plain version (:func:`rollout_bits_reference`
 on the same Philox words). Nothing falls back: a CUDA state either
-launches the kernel or raises. ``launches`` counts kernel launches.
+launches the kernel or raises. The counter ``fused.rollout_launches``
+(``utils/profiling.counters``) counts kernel launches.
 
 Semantics are those of the JAX reference's ``fused_step_soa``: a uniform
 action from the ``ACTION`` word, the move, a spawn iff the board changed,
@@ -40,13 +41,10 @@ import torch
 
 from rein48_tpu_torch.engine import core, lut, philox
 from rein48_tpu_torch.engine.core import EnvState
+from rein48_tpu_torch.utils import profiling
 
 NUM_CELLS = 16
 NUM_RAND_PLANES = philox.WORDS_PER_STEP
-
-# Kernel launches made by rollout_random_fused since the count was last
-# set to 0 (never by the plain version).
-launches = 0
 
 # Steps of Philox words the plain version draws at a time: bounds its
 # memory at B * 64 * 8 words.
@@ -275,7 +273,6 @@ def _words_as_int32(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(state: EnvState, seed: int, num_steps: int, bits, env_base: int):
-    global launches
     from rein48_tpu_torch import build
 
     n = state.boards.shape[0]
@@ -324,7 +321,7 @@ def _launch(state: EnvState, seed: int, num_steps: int, bits, env_base: int):
             env_base,
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    launches += 1
+    profiling.count("fused.rollout_launches")
     if err:
         raise RuntimeError(f"rollout kernel launch failed with CUDA error {err}")
     return _result(state, boards_out, score_out, steps_out, stats)

@@ -19,6 +19,7 @@ import torch
 from rein48_tpu_torch.device import resolve_device
 from rein48_tpu_torch.engine import core, philox
 from rein48_tpu_torch.engine.core import EnvState, RewardMode
+from rein48_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -86,8 +87,13 @@ def step_autoreset_from_bits(
     The counterpart of ``vector._step_autoreset_from_bits`` batched:
     ``bits`` is int64 ``[B, 4]`` (spawn rank, spawn value, reset rank,
     reset value), ``actions`` is ``[B]``. The stream counter is left as it
-    is; :func:`step_autoreset` advances it.
+    is; :func:`step_autoreset` advances it. One ``engine.step`` span.
     """
+    with profiling.span("engine.step"):
+        return _step_from_bits(state, actions, bits, reward_mode)
+
+
+def _step_from_bits(state: EnvState, actions, bits, reward_mode):
     moved, merge_score, changed = core.move_boards(state.boards, actions)
     n_blanks = (moved == 0).flatten(-2).sum(-1)
     moved = core.place_tile(
@@ -135,9 +141,7 @@ def step_autoreset_from_bits(
 
 def _advance(state: EnvState, actions, words, reward_mode):
     """Step with this step's stream words (int64 ``[B, 5]``), count it."""
-    new_state, out = step_autoreset_from_bits(
-        state, actions, words[:, philox.SPAWN_RANK :], reward_mode
-    )
+    new_state, out = _step_from_bits(state, actions, words[:, philox.SPAWN_RANK :], reward_mode)
     new_state.counter = state.counter + 1
     return new_state, out
 
@@ -149,10 +153,11 @@ def step_autoreset(
 ):
     """Step every board with ``actions``; reset finished boards in place.
 
-    Returns ``(new_state, StepOutput)``.
+    Returns ``(new_state, StepOutput)``. One ``engine.step`` span.
     """
-    words = philox.step_words(state.seed, state.env_id, state.counter)
-    return _advance(state, actions, words, reward_mode)
+    with profiling.span("engine.step"):
+        words = philox.step_words(state.seed, state.env_id, state.counter)
+        return _advance(state, actions, words, reward_mode)
 
 
 def step_batch(

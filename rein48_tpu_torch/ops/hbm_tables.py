@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from rein48_tpu_torch.ops.tables import _check, _raise_on, _stream
+from rein48_tpu_torch.utils import profiling
 
 ROW = 128  # table row width
 G_BLK = 128  # rows of elements per block of the scatter's cold residue
@@ -44,9 +45,6 @@ BLOCK = G_BLK * ROW  # 16,384 elements
 # wrapper sorts the rows and hands the kernel their slots, and the kernel
 # binary-searches them.
 HASH_MAX_ROWS = 8192
-
-# Kernel launches per kernel since the counts were last set to 0.
-launches = {"cached_gather": 0, "cached_scatter": 0}
 
 _ARGTYPES = {
     "rein48_cached_gather": [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
@@ -217,7 +215,7 @@ def _launch_gather(table, rowmap_flat, idx) -> torch.Tensor:
     dev = table.device
     with torch.cuda.device(dev):
         err = fn(table.data_ptr(), rowmap_flat.data_ptr(), idx.data_ptr(), out.data_ptr(), n, _stream(dev))
-    launches["cached_gather"] += 1
+    profiling.count("hbm_tables.cached_gather")
     _raise_on(err, "cached_gather")
     return out
 
@@ -287,7 +285,7 @@ def _launch_scatter(hot_rows, idx, err, cold_capacity_rows: int):
             base, base + 4 * k * ROW, base + 8 * k * ROW, cold_idx.data_ptr(), cold_err.data_ptr(),
             cap, counts.data_ptr(), base + flag_at, _stream(dev),
         )
-    launches["cached_scatter"] += 1
+    profiling.count("hbm_tables.cached_scatter")
     _raise_on(status, "cached_scatter")
     return stats[0], stats[1], stats[2], cold_idx, cold_err, counts, overflow
 

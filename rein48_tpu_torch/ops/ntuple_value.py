@@ -9,8 +9,9 @@ Run eagerly, the same composition is about 12 launches per call at
 ``SJ_2X4`` and 24 at ``YEH_4X6``. On the card :func:`ntuple_value` is one
 launch of the kernel of ``csrc/ntuple_value.cu`` per call (see the note at
 the top of that file); a CPU tensor runs the plain version,
-:func:`ntuple_value_reference`; any other device raises. ``launches``
-counts kernel launches, never those of the plain version.
+:func:`ntuple_value_reference`; any other device raises. The counter
+``ntuple_value.launches`` (``utils/profiling.counters``) counts kernel
+launches, never those of the plain version.
 
 The kernel's lookups come from a :class:`Layout`, packed once per network
 from its cells: per lookup, the board cells of its digits (weighted
@@ -36,6 +37,7 @@ import torch
 
 from rein48_tpu_torch.ops.hbm_tables import ROW, physical_index
 from rein48_tpu_torch.ops.tables import _raise_on, _stream
+from rein48_tpu_torch.utils import profiling
 
 MAX_TABLES = 8  # tables of one group
 MAX_LANES = 32  # lookups per board of one group: one warp
@@ -44,9 +46,6 @@ NUM_CELLS = 16
 # The group's packed words: num_tables, lanes, max_lookups,
 # table_first[MAX_TABLES + 1], lane_bytes[MAX_LANES], lane_meta[MAX_LANES].
 LAYOUT_WORDS = 3 + MAX_TABLES + 1 + 2 * MAX_LANES
-
-# Kernel launches since the count was last set to 0.
-launches = {"ntuple_value": 0}
 
 _PtrArray = ctypes.c_void_p * MAX_TABLES
 _fns: dict = {}
@@ -202,7 +201,7 @@ def _launch(boards, tables, layout, rowmaps, transposed: bool) -> torch.Tensor:
             rms = None if rowmaps is None else _PtrArray(*[rowmaps[t].data_ptr() for t in group])
             err = fn(boards.data_ptr(), n, (words_t if transposed else words).ctypes.data, tabs, rms,
                      None if prev is None else prev.data_ptr(), out.data_ptr(), stream)
-            launches["ntuple_value"] += 1
+            profiling.count("ntuple_value.launches")
             _raise_on(err, "ntuple_value")
     return out
 

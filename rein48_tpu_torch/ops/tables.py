@@ -11,7 +11,8 @@ warp-aggregated atomics; see the note at the top of that file.
 Each function keeps its JAX name, semantics and shapes. A CUDA tensor
 launches the kernel or raises; a CPU tensor runs the plain version
 (:func:`gather_reference`, :func:`scatter_reference`); any other device
-raises. ``launches`` counts kernel launches per kernel, never those of the
+raises. The counters ``tables.table_gather`` and ``tables.table_scatter``
+(``utils/profiling.counters``) count kernel launches, never those of the
 plain versions.
 
 Exactness: the gather is bit-exact. The scatter's float sums are
@@ -26,12 +27,11 @@ from typing import Tuple
 
 import torch
 
+from rein48_tpu_torch.utils import profiling
+
 # Largest table the "mxu" backend takes (the JAX package's limit, kept so
 # that table_backend="auto" resolves alike in both packages).
 MXU_TABLE_MAX = 1 << 16
-
-# Kernel launches per kernel since the counts were last set to 0.
-launches = {"table_gather": 0, "table_scatter": 0}
 
 _ARGTYPES = {
     "rein48_table_gather": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p],
@@ -102,7 +102,7 @@ def _launch_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     fn = _fn("rein48_table_gather")
     with torch.cuda.device(table.device):
         err = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, _stream(table.device))
-    launches["table_gather"] += 1
+    profiling.count("tables.table_gather")
     _raise_on(err, "table_gather")
     return out
 
@@ -118,7 +118,7 @@ def _launch_scatter(size: int, idx: torch.Tensor, vals: torch.Tensor, stats: boo
     ptrs = [base + 4 * size * k for k in range(3)] if stats else [base, 0, 0]
     with torch.cuda.device(dev):
         err = fn(idx.data_ptr(), vals.data_ptr(), *ptrs, n, int(stats), _stream(dev))
-    launches["table_scatter"] += 1
+    profiling.count("tables.table_scatter")
     _raise_on(err, "table_scatter")
     return out
 
@@ -128,7 +128,7 @@ def empty_launch(device: torch.device) -> None:
 
     Its device time is the card's launch floor, the least time any kernel
     takes; ``chip_smoke.py`` measures it beside the table kernels. No path
-    runs it, and ``launches`` does not count it.
+    runs it, and no counter counts it.
     """
     with torch.cuda.device(device):
         _raise_on(_fn("rein48_empty")(_stream(device)), "empty")

@@ -39,6 +39,7 @@ from rein48_tpu_torch.models import nets
 from rein48_tpu_torch.parallel import mesh as mesh_lib
 from rein48_tpu_torch.parallel import spmd
 from rein48_tpu_torch.train import common
+from rein48_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,23 +177,25 @@ def rollout_policy(config, policy, env: core.EnvState, noise: torch.Tensor, *, b
     ``legal_mask``, ``behavior_logp`` (log pi(a_t | s_t) of the masked
     policy), ``behavior_value`` and, with ``after_boards``, the pre-spawn
     afterstates ``after_boards``; ``bootstrap`` is V(s_T); ``metrics`` the
-    episode sums (device scalars).
+    episode sums (device scalars). Each step's forward, mask and sampling,
+    and the bootstrap forward, are an ``a3c.act`` span each.
     """
     traj = {k: [] for k in ("boards", "actions", "rewards", "dones", "legal_mask", "behavior_logp", "behavior_value")}
     if after_boards:
         traj["after_boards"] = []
     episodes, tile_sum, length, best = [], [], [], []
     for t in range(config.unroll_len):
-        logits, value = policy(env.boards)
-        if config.use_legal_mask:
-            mask = core.legal_action_mask(env.boards)
-        else:
-            mask = torch.ones(logits.shape, dtype=torch.bool, device=logits.device)
-        masked = a3c_agent.masked_logits(logits, mask)
-        actions = (masked + noise[t]).argmax(-1)
-        traj["behavior_logp"].append(torch.log_softmax(masked, -1).gather(-1, actions[:, None])[:, 0])
-        if after_boards:
-            traj["after_boards"].append(core.move_boards(env.boards, actions)[0])
+        with profiling.span("a3c.act"):
+            logits, value = policy(env.boards)
+            if config.use_legal_mask:
+                mask = core.legal_action_mask(env.boards)
+            else:
+                mask = torch.ones(logits.shape, dtype=torch.bool, device=logits.device)
+            masked = a3c_agent.masked_logits(logits, mask)
+            actions = (masked + noise[t]).argmax(-1)
+            traj["behavior_logp"].append(torch.log_softmax(masked, -1).gather(-1, actions[:, None])[:, 0])
+            if after_boards:
+                traj["after_boards"].append(core.move_boards(env.boards, actions)[0])
         traj["boards"].append(env.boards)
         if bits is None:
             env, out = vector.step_autoreset(env, actions, config.reward_mode)
@@ -209,7 +212,8 @@ def rollout_policy(config, policy, env: core.EnvState, noise: torch.Tensor, *, b
         tile_sum.append(out.episode_tile_sum.sum())
         length.append(out.episode_length.sum())
         best.append(out.max_tile.max())
-    _, bootstrap = policy(env.boards)
+    with profiling.span("a3c.act"):
+        _, bootstrap = policy(env.boards)
     metrics = {
         "episodes": torch.stack(episodes).sum().to(torch.float32),
         "episode_tile_sum_sum": torch.stack(tile_sum).sum(),

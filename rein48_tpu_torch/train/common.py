@@ -26,6 +26,7 @@ from rein48_tpu_torch.engine import philox
 from rein48_tpu_torch.models import obs as obs_lib
 from rein48_tpu_torch.parallel import mesh as mesh_lib
 from rein48_tpu_torch.parallel import spmd
+from rein48_tpu_torch.utils import profiling
 
 OBS_ENCODERS = {
     "onehot": obs_lib.encode_onehot,
@@ -168,34 +169,36 @@ class Optimizer:
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor | None]) -> None:
         """One update from ``grads`` (aligned with ``params``; ``None`` is
-        zero), already passed through :meth:`reduce` on a mesh."""
-        if len(grads) != len(self.params):
-            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        if self.max_grad_norm is not None:
-            norm = self.global_norm(grads)
-            keep = norm < self.max_grad_norm
-            grads = [torch.where(keep, g, (g / norm) * self.max_grad_norm) for g in grads]
-        neg_lr = -self.lr()
-        count = self.count + 1
-        if self.name in ("adam", "adamw"):
-            bc1, bc2 = _bias_correction(ADAM_B1, count), _bias_correction(ADAM_B2, count)
-        for i, (p, g) in enumerate(zip(self.params, grads)):
+        zero), already passed through :meth:`reduce` on a mesh; one
+        ``optim.step`` span."""
+        with profiling.span("optim.step"):
+            if len(grads) != len(self.params):
+                raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
+            if self.max_grad_norm is not None:
+                norm = self.global_norm(grads)
+                keep = norm < self.max_grad_norm
+                grads = [torch.where(keep, g, (g / norm) * self.max_grad_norm) for g in grads]
+            neg_lr = -self.lr()
+            count = self.count + 1
             if self.name in ("adam", "adamw"):
-                mu, nu = self.moments["mu"][i], self.moments["nu"][i]
-                mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
-                nu.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-                if self.name == "adamw":
-                    u = u + ADAMW_WEIGHT_DECAY * p
-            elif self.name == "rmsprop":
-                nu = self.moments["nu"][i]
-                nu.copy_((1 - RMSPROP_DECAY) * (g * g) + RMSPROP_DECAY * nu)
-                u = torch.rsqrt(nu + RMSPROP_EPS) * g
-            else:
-                u = g
-            p.add_(u * neg_lr)
-        self.count = count
+                bc1, bc2 = _bias_correction(ADAM_B1, count), _bias_correction(ADAM_B2, count)
+            for i, (p, g) in enumerate(zip(self.params, grads)):
+                if self.name in ("adam", "adamw"):
+                    mu, nu = self.moments["mu"][i], self.moments["nu"][i]
+                    mu.copy_((1 - ADAM_B1) * g + ADAM_B1 * mu)
+                    nu.copy_((1 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
+                    u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+                    if self.name == "adamw":
+                        u = u + ADAMW_WEIGHT_DECAY * p
+                elif self.name == "rmsprop":
+                    nu = self.moments["nu"][i]
+                    nu.copy_((1 - RMSPROP_DECAY) * (g * g) + RMSPROP_DECAY * nu)
+                    u = torch.rsqrt(nu + RMSPROP_EPS) * g
+                else:
+                    u = g
+                p.add_(u * neg_lr)
+            self.count = count
 
     def state_dict(self) -> dict:
         return {"name": self.name, "count": self.count, **{m: [t.detach().cpu() for t in ts] for m, ts in self.moments.items()}}

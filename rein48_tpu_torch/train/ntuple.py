@@ -50,6 +50,7 @@ from rein48_tpu_torch.engine import core, vector
 from rein48_tpu_torch.ops import tables as table_ops
 from rein48_tpu_torch.parallel import spmd
 from rein48_tpu_torch.train import common, evaluate
+from rein48_tpu_torch.utils import profiling
 
 # The trainer's fields that hold the env batch (sharded over "dp" on a mesh).
 BATCHED = ("env", "prev_after", "prev_valid")
@@ -228,7 +229,8 @@ def make_ntuple_step(config: NTupleTrainConfig, device=None, mesh=None):
     tables are updated in place. With a ``mesh`` the state holds this
     rank's slice of the games, each window's backups are gathered before
     the tables move (:func:`gather_backups`, :func:`share_touched`), and the
-    metrics are combined over the ranks.
+    metrics are combined over the ranks. Each acting step is an
+    ``ntuple.act`` span, each window's table update an ``ntuple.apply`` span.
     """
     device = resolve_device(device)
     net = get_network(config.network_config(device))
@@ -266,19 +268,21 @@ def make_ntuple_step(config: NTupleTrainConfig, device=None, mesh=None):
         for _ in range(config.steps_per_update // window):
             boards, errs = [], []
             for _ in range(window):
-                env, prev_after, done, upd_boards, upd_errs, m = _policy_and_backups(
-                    net, params, env, prev_after, prev_valid
-                )
+                with profiling.span("ntuple.act"):
+                    env, prev_after, done, upd_boards, upd_errs, m = _policy_and_backups(
+                        net, params, env, prev_after, prev_valid
+                    )
                 prev_valid = 1.0 - done
                 boards.append(upd_boards)
                 errs.append(upd_errs)
                 ms.append(m)
-            if mesh is None:
-                params = apply(params, torch.cat(boards), torch.cat(errs))
-            else:
-                all_boards, all_errs = gather_backups(boards, errs, group)
-                params = apply(params, all_boards, all_errs)
-                share_touched(net, params, all_boards, group)
+            with profiling.span("ntuple.apply"):
+                if mesh is None:
+                    params = apply(params, torch.cat(boards), torch.cat(errs))
+                else:
+                    all_boards, all_errs = gather_backups(boards, errs, group)
+                    params = apply(params, all_boards, all_errs)
+                    share_touched(net, params, all_boards, group)
         stacked = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
         sums = ("episodes", "episode_score_sum", "episode_tile_sum_sum", "episode_length_sum", "td_abs_err", "td_updates")
         metrics = {k: stacked[k].sum() for k in sums}

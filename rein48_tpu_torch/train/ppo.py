@@ -43,6 +43,7 @@ from rein48_tpu_torch.models import nets
 from rein48_tpu_torch.parallel import mesh as mesh_lib
 from rein48_tpu_torch.parallel import spmd
 from rein48_tpu_torch.train import a3c, common
+from rein48_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,23 +194,25 @@ class PPOStep:
         ``(env, batch, metrics)``: ``batch`` holds ``[T, B, ...]`` tensors
         ``boards``, ``actions``, ``legal_mask``, ``behavior_logp``,
         ``behavior_value``, ``advantages``, ``returns`` and, with the
-        afterstate critic, ``after_boards`` and ``after_targets``.
+        afterstate critic, ``after_boards`` and ``after_targets``. One
+        ``ppo.rollout`` span.
         """
-        cfg = self.config
-        shape = (cfg.unroll_len, cfg.batch_size, nets.NUM_ACTIONS)
-        if noise is None:
-            noise = philox.learner_gumbel(state.seed, state.update_step, shape, device=state.env.boards.device)[:, self.rows]
-        critic = cfg.afterstate_critic
-        env, traj, bootstrap, metrics = a3c.rollout_policy(cfg, self.policy, state.env, noise, bits=bits, after_boards=critic)
-        advantages, returns = ppo_agent.gae(
-            traj["rewards"], traj["behavior_value"], bootstrap, cfg.gamma, cfg.gae_lambda, dones=traj["dones"]
-        )
-        keys = ["boards", "actions", "legal_mask", "behavior_logp", "behavior_value"] + (["after_boards"] if critic else [])
-        batch = {k: traj[k] for k in keys}
-        batch.update(advantages=advantages, returns=returns)
-        if critic:
-            batch["after_targets"] = ppo_agent.afterstate_targets(returns, bootstrap, traj["dones"])
-        return env, batch, metrics
+        with profiling.span("ppo.rollout"):
+            cfg = self.config
+            shape = (cfg.unroll_len, cfg.batch_size, nets.NUM_ACTIONS)
+            if noise is None:
+                noise = philox.learner_gumbel(state.seed, state.update_step, shape, device=state.env.boards.device)[:, self.rows]
+            critic = cfg.afterstate_critic
+            env, traj, bootstrap, metrics = a3c.rollout_policy(cfg, self.policy, state.env, noise, bits=bits, after_boards=critic)
+            advantages, returns = ppo_agent.gae(
+                traj["rewards"], traj["behavior_value"], bootstrap, cfg.gamma, cfg.gae_lambda, dones=traj["dones"]
+            )
+            keys = ["boards", "actions", "legal_mask", "behavior_logp", "behavior_value"] + (["after_boards"] if critic else [])
+            batch = {k: traj[k] for k in keys}
+            batch.update(advantages=advantages, returns=returns)
+            if critic:
+                batch["after_targets"] = ppo_agent.afterstate_targets(returns, bootstrap, traj["dones"])
+            return env, batch, metrics
 
     def permutations(self, state: PPOTrainState, device) -> torch.Tensor:
         """The update's shuffles, one per epoch (``common.shuffles``); on a
@@ -235,21 +238,23 @@ class PPOStep:
         return out
 
     def minibatch_loss(self, mb: Dict[str, torch.Tensor], loss_cfg: ppo_agent.PPOLossConfig):
-        """The loss of one minibatch and its diagnostics (device scalars)."""
-        logits, values = self.policy(mb["boards"])
-        logits = a3c_agent.masked_logits(logits, mb["legal_mask"])
-        adv = mb["advantages"]
-        if self.config.normalize_advantage:
-            adv = a3c_agent.normalize(adv, self.group)
-        loss, aux = ppo_agent.ppo_loss(
-            logits, values, mb["actions"], mb["behavior_logp"], mb["behavior_value"], adv, mb["returns"], loss_cfg
-        )
-        if self.after_value is not None:
-            v_after = self.after_value(mb["after_boards"])[1]
-            after_loss = torch.mean(torch.square(v_after - mb["after_targets"].detach()))
-            loss = loss + self.config.after_coef * after_loss
-            aux.update(after_loss=after_loss, loss=loss)
-        return loss, aux
+        """The loss of one minibatch and its diagnostics (device scalars);
+        one ``ppo.forward`` span."""
+        with profiling.span("ppo.forward"):
+            logits, values = self.policy(mb["boards"])
+            logits = a3c_agent.masked_logits(logits, mb["legal_mask"])
+            adv = mb["advantages"]
+            if self.config.normalize_advantage:
+                adv = a3c_agent.normalize(adv, self.group)
+            loss, aux = ppo_agent.ppo_loss(
+                logits, values, mb["actions"], mb["behavior_logp"], mb["behavior_value"], adv, mb["returns"], loss_cfg
+            )
+            if self.after_value is not None:
+                v_after = self.after_value(mb["after_boards"])[1]
+                after_loss = torch.mean(torch.square(v_after - mb["after_targets"].detach()))
+                loss = loss + self.config.after_coef * after_loss
+                aux.update(after_loss=after_loss, loss=loss)
+            return loss, aux
 
     def learn(self, state: PPOTrainState, batch: Dict[str, torch.Tensor], *, perms=None) -> Dict[str, torch.Tensor]:
         """``num_epochs`` x ``num_minibatches`` optimizer steps.
@@ -258,25 +263,28 @@ class PPOStep:
         them) replaces the learner stream's. Returns the last epoch's means
         of the loss's diagnostics and ``grad_norm`` (before clipping), and
         ``approx_kl_last``, the last minibatch's ``approx_kl``, as device
-        scalars.
+        scalars. One ``ppo.learn`` span; each minibatch's gradient (with its
+        all-reduce on a mesh) is a ``ppo.backward`` span.
         """
-        loss_cfg = self.loss_cfg._replace(entropy_beta=a3c.entropy_beta_at(self.config, state.update_step))
-        if perms is None:
-            perms = self.permutations(state, batch["returns"].device)
-        params = self.optimizer.params
-        for perm in perms:
-            mbs = self.minibatches(batch, perm)
-            aux = []
-            for m in range(self.config.num_minibatches):
-                loss, a = self.minibatch_loss({k: v[m] for k, v in mbs.items()}, loss_cfg)
-                grads = self.optimizer.reduce(torch.autograd.grad(loss, params, allow_unused=True))
-                a = {k: v.detach() for k, v in a.items()}
-                a["grad_norm"] = self.optimizer.global_norm(grads)
-                self.optimizer.step(grads)
-                aux.append(a)
-        metrics = {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]}
-        metrics["approx_kl_last"] = aux[-1]["approx_kl"]
-        return metrics
+        with profiling.span("ppo.learn"):
+            loss_cfg = self.loss_cfg._replace(entropy_beta=a3c.entropy_beta_at(self.config, state.update_step))
+            if perms is None:
+                perms = self.permutations(state, batch["returns"].device)
+            params = self.optimizer.params
+            for perm in perms:
+                mbs = self.minibatches(batch, perm)
+                aux = []
+                for m in range(self.config.num_minibatches):
+                    loss, a = self.minibatch_loss({k: v[m] for k, v in mbs.items()}, loss_cfg)
+                    with profiling.span("ppo.backward"):
+                        grads = self.optimizer.reduce(torch.autograd.grad(loss, params, allow_unused=True))
+                    a = {k: v.detach() for k, v in a.items()}
+                    a["grad_norm"] = self.optimizer.global_norm(grads)
+                    self.optimizer.step(grads)
+                    aux.append(a)
+            metrics = {k: torch.stack([a[k] for a in aux]).mean() for k in aux[0]}
+            metrics["approx_kl_last"] = aux[-1]["approx_kl"]
+            return metrics
 
     def __call__(self, state: PPOTrainState, *, bits=None, noise=None, perms=None):
         env, batch, rollout_metrics = self.rollout(state, bits=bits, noise=noise)

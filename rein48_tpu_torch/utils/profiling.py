@@ -21,16 +21,28 @@ DQN flagship and of DDPG at its defaults and their acting and learn phases,
 
     python -m rein48_tpu_torch.utils.profiling [group ...]
 
-and prints one JSON line per path, for the groups named (all by default).
+and prints one JSON line per path, for the groups named (all by default),
+with the table of the port's spans inside the profiled calls.
 
-Beside it, the JAX package's hooks: :func:`trace` (a Chrome/Perfetto trace
+**Spans and counters.** The port marks its layer boundaries with
+:func:`span` (a context manager: ``with profiling.span("ppo.learn"):``) and
+counts work there with :func:`count` (``profiling.count("search.leaf_boards",
+n)``). Spans cost one check of a module flag until :func:`tracing` turns them
+on; each then records its name, its host start and end on the profiler's
+time base (``time.time_ns``), its parent and its root span, a pair of CUDA
+events on the current stream when there is a card, and enters
+``torch.profiler.record_function`` so that a profiler session shows it as an
+annotation. Counters are always on, one dict add each, in one registry
+(:data:`counters`, :func:`snapshot`, :func:`reset`).
+
+Beside them, the JAX package's hooks: :func:`trace` (a Chrome/Perfetto trace
 of a block of code), :func:`force` (fetch one scalar, which waits for the
-work that produces it), :class:`Throughput` (an env-steps/s meter on
-:func:`force`) and :func:`enable_nan_debugging`.
+work that produces it) and :func:`enable_nan_debugging`.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -41,7 +53,178 @@ import time
 from typing import Iterator, Optional
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
+
+# Counts at the port's layer boundaries by dotted name, "<module>.<what>":
+# kernel launches (``tables.table_gather``, ``tables.table_scatter``,
+# ``hbm_tables.cached_gather``, ``hbm_tables.cached_scatter``,
+# ``ntuple_value.launches``, ``fused.rollout_launches``; never the plain
+# versions), the "cached" backend's delayed windows by branch
+# (``ntuple.cached_fast``, ``ntuple.cached_fallback``) and the boards fed to
+# the search's leaf evaluator (``search.leaf_boards``). A name appears at its
+# first count.
+counters: dict = {}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    counters[name] = counters.get(name, 0) + n
+
+
+def snapshot() -> dict:
+    """A copy of the counters as they stand."""
+    return dict(counters)
+
+
+def reset() -> None:
+    """Set every counter to 0."""
+    for name in counters:
+        counters[name] = 0
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span: ``start_ns``/``end_ns`` on the host (``time.time_ns``, the
+    profiler's time base), ``parent`` and ``root`` as span ids (the root's
+    is its own), and ``device_ms``, the time between its CUDA events on the
+    device's clock (the host's duration where there is no card) once
+    :meth:`Trace.resolve` has read it."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    root: int
+    start_ns: int = 0
+    end_ns: int = 0
+    device_ms: Optional[float] = None
+    events: Optional[tuple] = None
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+
+# Timing events no resolved span holds any more.
+_EVENT_POOL: list = []
+
+
+def _event():
+    return _EVENT_POOL.pop() if _EVENT_POOL else torch.cuda.Event(enable_timing=True)
+
+
+class Trace:
+    """What a :func:`tracing` block recorded: ``spans`` in order of entry,
+    and ``counters``, the counters' change over the block (the names that
+    changed)."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.counters: dict = {}
+        self.cuda = torch.cuda.is_available()
+        self._open: list = []
+
+    def resolve(self) -> list:
+        """The spans with their device-clock durations. Read after the
+        device has been synced: no span waits for the device, so the end of
+        one the device has not reached yet is waited for here."""
+        for s in self.spans:
+            if s.events is not None and s.end_ns:
+                start, end = s.events
+                end.synchronize()
+                s.device_ms = start.elapsed_time(end)
+                s.events = None
+                _EVENT_POOL.extend((start, end))
+        return self.spans
+
+
+class _Span:
+    __slots__ = ("trace", "name", "record", "annotation")
+
+    def __init__(self, trace: Trace, name: str):
+        self.trace, self.name = trace, name
+
+    def __enter__(self) -> SpanRecord:
+        t = self.trace
+        parent = t._open[-1] if t._open else None
+        i = len(t.spans)
+        rec = SpanRecord(self.name, i, None if parent is None else parent.id, i if parent is None else parent.root)
+        t.spans.append(rec)
+        t._open.append(rec)
+        rec.start_ns = time.time_ns()
+        self.record, self.annotation = rec, record_function(self.name)
+        self.annotation.__enter__()
+        if t.cuda:
+            rec.events = (_event(), _event())
+            rec.events[0].record()
+        return rec
+
+    def __exit__(self, *exc) -> bool:
+        rec = self.record
+        if rec.events is not None:
+            rec.events[1].record()
+        self.annotation.__exit__(*exc)
+        rec.end_ns = time.time_ns()
+        if rec.events is None:
+            rec.device_ms = rec.host_ms
+        self.trace._open.pop()
+        return False
+
+
+# The record of the open tracing() block; None while spans are off.
+_trace: Optional[Trace] = None
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A span named after the port's module and step (``"engine.step"``).
+    Off (the default) it is one shared context that does nothing."""
+    if _trace is None:
+        return _OFF
+    return _Span(_trace, name)
+
+
+@contextlib.contextmanager
+def tracing() -> Iterator[Trace]:
+    """Turn spans on for the block; yields its :class:`Trace`, whose
+    ``counters`` hold the counters' change once the block ends."""
+    global _trace
+    if _trace is not None:
+        raise RuntimeError("tracing() blocks do not nest")
+    trace, before = Trace(), snapshot()
+    _trace = trace
+    try:
+        yield trace
+    finally:
+        _trace = None
+        trace.counters = {k: v - before.get(k, 0) for k, v in counters.items() if v != before.get(k, 0)}
+
+
+def span_table(trace: Trace, prof, calls: int) -> list:
+    """Per span name, in order of first entry, per one of ``calls`` calls:
+    the spans, the host ms, the device ms, the device self ms (less its
+    direct children's device ms) and the host's kernel launches inside the
+    spans, from ``prof``, a finished ``profile`` session over the block."""
+    spans = trace.resolve()
+    child_ms = [0.0] * len(spans)
+    for s in spans:
+        if s.parent is not None:
+            child_ms[s.parent] += s.device_ms
+    launch_ns = sorted(_launch_starts(prof))
+    rows: dict = {}
+    for s in spans:
+        row = rows.setdefault(
+            s.name, {"span": s.name, "calls": 0, "host_ms": 0.0, "device_ms": 0.0, "self_ms": 0.0, "launches": 0}
+        )
+        row["calls"] += 1
+        row["host_ms"] += s.host_ms
+        row["device_ms"] += s.device_ms
+        row["self_ms"] += s.device_ms - child_ms[s.id]
+        row["launches"] += bisect.bisect_right(launch_ns, s.end_ns) - bisect.bisect_left(launch_ns, s.start_ns)
+    for row in rows.values():
+        for k in row:
+            if k != "span":
+                row[k] = round(row[k] / calls, 6)
+    return list(rows.values())
 
 
 @contextlib.contextmanager
@@ -100,38 +283,6 @@ def force(x) -> float:
     return float(leaf.reshape(-1)[0])
 
 
-class Throughput:
-    """Env-steps/s meter, as the JAX package's.
-
-    >>> meter = Throughput(steps_per_call=B * T)
-    >>> for _ in range(n):
-    ...     state, _ = rollout(state)
-    ...     meter.tick(state)          # forces + accumulates
-    >>> meter.rate()
-
-    The first :meth:`tick` starts the clock (so a first call's build or
-    warm-up is not timed); :meth:`rate` is 0.0 until a second tick.
-    """
-
-    def __init__(self, steps_per_call: int):
-        self.steps_per_call = steps_per_call
-        self._calls = 0
-        self._t0: Optional[float] = None
-
-    def tick(self, state) -> None:
-        force(state)
-        now = time.perf_counter()
-        if self._t0 is None:
-            self._t0 = now
-        else:
-            self._calls += 1
-
-    def rate(self) -> float:
-        if self._t0 is None or self._calls == 0:
-            return 0.0
-        return self._calls * self.steps_per_call / (time.perf_counter() - self._t0)
-
-
 # Host calls that launch one kernel each, by the runtime or the driver API.
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
 
@@ -143,10 +294,13 @@ def kernel_times(prof) -> tuple[dict, int]:
     that launch a kernel. These are the sums ``prof.key_averages()`` gives,
     read from the session's raw events: ``key_averages`` first builds a
     Python object per event, which takes tens of seconds for an update of
-    50-80 k launches."""
+    50-80 k launches. Spans' annotations, which the session also draws on
+    the device's timeline, are no work and are left out."""
     kernels: dict = {}
     launches = 0
     for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            continue
         device = e.device_type().name
         if device == "CPU":
             launches += e.name().startswith(_LAUNCH_CALLS)
@@ -157,16 +311,29 @@ def kernel_times(prof) -> tuple[dict, int]:
     return kernels, launches
 
 
+def _launch_starts(prof) -> list:
+    """Host start times (ns) of a finished session's kernel-launch calls."""
+    return [
+        e.start_ns() for e in prof.profiler.kineto_results.events()
+        if e.device_type().name == "CPU" and e.name().startswith(_LAUNCH_CALLS)
+    ]
+
+
 def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dict:
-    """Profile ``reps`` calls of ``fn()`` after ``warmup`` calls."""
+    """Profile ``reps`` calls of ``fn()`` after ``warmup`` calls, with spans
+    on: ``spans`` is their :func:`span_table` per call. Without a card the
+    session holds the host's events alone."""
+    card = torch.cuda.is_available()
+    sync = torch.cuda.synchronize if card else (lambda: None)
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    sync()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    with tracing() as trace, profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+        sync()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
     kernels, launch_calls = kernel_times(prof)
     device_ms = sum(us for us, _ in kernels.values()) / 1e3 / reps
@@ -180,6 +347,7 @@ def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dic
             {"kernel": name[:80], "ms": round(us / 1e3 / reps, 6), "calls": calls // reps}
             for name, (us, calls) in ranked[:top]
         ],
+        "spans": span_table(trace, prof, reps),
     }
 
 
@@ -262,7 +430,6 @@ def _profile_ntuple(dev, out) -> None:
 
 
 def _profile_cached(dev, out) -> None:
-    from rein48_tpu_torch.agents import ntuple
     from rein48_tpu_torch.train import ntuple as nt
 
     # The flagship's tables (4 x 16.7M entries) with the cached defaults
@@ -278,9 +445,10 @@ def _profile_cached(dev, out) -> None:
         def update(box=box, step=step):
             box[0] = step(box[0])[0]
 
-        windows = dict(ntuple.cached_windows)
+        before = snapshot()
         r = device_breakdown(update, warmup=1, reps=2, top=8)
-        r["cached_windows"] = {k: ntuple.cached_windows[k] - windows[k] for k in windows}
+        r["cached_windows"] = {k: counters.get(f"ntuple.cached_{k}", 0) - before.get(f"ntuple.cached_{k}", 0)
+                               for k in ("fast", "fallback")}
         out[f"ntuple train delayed backend={backend} YEH_4X6 B=1024 T=128 (one update)"] = r
         del box
 
@@ -371,4 +539,8 @@ def _profile_dqn(dev, out) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    # Run as a script this file is a second module, "__main__"; the port's
+    # spans and counters live in the package's copy, so run that one's main.
+    from rein48_tpu_torch.utils import profiling
+
+    profiling.main()

@@ -76,6 +76,9 @@ DIFFERENCES = {
     ("utils/metrics.py", "MetricLogger"): (
         {"tensorboard"}, "Flax's TensorBoard writer: no caller in either package sets it; the port writes stdout and the CSV"
     ),
+    ("utils/profiling.py", "Throughput"): (
+        None, "an env-steps/s meter whose clock starts at the first tick, so warm-up is timed: nothing in the port used it"
+    ),
 }
 
 

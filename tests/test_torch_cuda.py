@@ -25,6 +25,7 @@ from rein48_tpu_torch.ops import hbm_tables, tables
 from rein48_tpu_torch.testing import edge_boards
 from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
+from rein48_tpu_torch.utils import profiling
 from rein48_tpu_torch.utils.checkpoint import Checkpointer
 
 import torch_dist_ranks as ranks
@@ -41,6 +42,16 @@ def cuda():
     return torch.device("cuda")
 
 
+def count(name: str) -> int:
+    """A counter of the registry (``utils/profiling.counters``); 0 before its first count."""
+    return profiling.counters.get(name, 0)
+
+
+def counts(prefix: str) -> dict:
+    """The registry's counters whose names start with ``prefix``."""
+    return {k: v for k, v in profiling.counters.items() if k.startswith(prefix)}
+
+
 def assert_same(got, want):
     (gs, gt), (ws, wt) = got, want
     for name in ("boards", "score", "steps"):
@@ -55,10 +66,10 @@ def test_rollout_kernel_matches_plain(cuda, batch, steps):
     state = vector.reset_batch(1, batch, cuda)
     bits = philox.philox_bits(4, steps, batch, device=cuda)
     want = fused.rollout_bits_reference(state, bits)
-    before = fused.launches
+    before = count("fused.rollout_launches")
     assert_same(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
     assert_same(fused.rollout_random_fused(state, 4, steps), want)
-    assert fused.launches == before + 2
+    assert count("fused.rollout_launches") == before + 2
 
 
 def test_rollout_kernel_slice_draws_the_global_streams(cuda):
@@ -87,10 +98,10 @@ def test_rollout_kernel_edge_boards(cuda, batch, steps):
     state.steps = torch.randint(0, 1000, (batch,), generator=g, dtype=torch.int32).to(cuda)
     bits = philox.philox_bits(5, steps, batch, device=cuda)
     want = fused.rollout_bits_reference(state, bits)
-    before = fused.launches
+    before = count("fused.rollout_launches")
     assert_same(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
     assert_same(fused.rollout_random_fused(state, 5, steps), want)
-    assert fused.launches == before + 2
+    assert count("fused.rollout_launches") == before + 2
 
 
 def test_rollout_kernel_table_is_uploaded_once(cuda):
@@ -104,10 +115,10 @@ def test_rollout_kernel_table_is_uploaded_once(cuda):
 
 def test_rollout_kernel_rejects_bad_words(cuda):
     state = vector.reset_batch(1, 256, cuda)
-    before = fused.launches
+    before = count("fused.rollout_launches")
     with pytest.raises(ValueError, match="bits must be"):
         fused.rollout_random_fused(state, 0, 8, bits=philox.philox_bits(0, 7, 256, device=cuda))
-    assert fused.launches == before
+    assert count("fused.rollout_launches") == before
 
 
 def test_rollout_kernel_refuses_exponent_16(cuda):
@@ -117,7 +128,7 @@ def test_rollout_kernel_refuses_exponent_16(cuda):
     state = vector.reset_batch(1, 256, cuda)
     state.boards = torch.from_numpy(edge_boards(256, 1)).to(cuda)
     state.boards[7, 2, 3] = 16
-    before = fused.launches
+    before = count("fused.rollout_launches")
     with pytest.raises(ValueError, match="at most 15"):
         fused.rollout_random_fused(state, 0, 8)
     state.boards[7, 2, 3] = 15
@@ -125,7 +136,7 @@ def test_rollout_kernel_refuses_exponent_16(cuda):
     out.boards[0, 0, 0] = 16
     with pytest.raises(ValueError, match="at most 15"):
         fused.rollout_random_fused(out, 0, 8)
-    assert fused.launches == before + 1
+    assert count("fused.rollout_launches") == before + 1
 
 
 def assert_sums_close(got, want, scale):
@@ -154,9 +165,9 @@ def table_inputs(n: int, size: int, device, seed: int = 0):
 def test_table_gather_kernel_is_bit_equal(cuda, n, size):
     table = torch.randn(size, generator=torch.Generator().manual_seed(n)).to(cuda)
     idx, _ = table_inputs(n, size, cuda)
-    before = dict(tables.launches)
+    before = count("tables.table_gather")
     got = tables.mxu_gather(table, idx.reshape(1, -1))
-    assert tables.launches["table_gather"] == before["table_gather"] + 1
+    assert count("tables.table_gather") == before + 1
     assert got.shape == (1, n) and torch.equal(got[0], tables.gather_reference(table, idx))
 
 
@@ -176,10 +187,10 @@ def table_stream(stream: str, n: int, size: int, device, seed: int = 0):
 def test_table_scatter_kernel_matches_plain(cuda, n, stream):
     size = 65536
     idx, vals = table_stream(stream, n, size, cuda, seed=n)
-    before = dict(tables.launches)
+    before = count("tables.table_scatter")
     got = tables.mxu_scatter_stats(size, idx, vals)
     got_sum = tables.mxu_scatter_sum(size, idx, vals)
-    assert tables.launches["table_scatter"] == before["table_scatter"] + 2
+    assert count("tables.table_scatter") == before + 2
     want = tables.scatter_reference(size, idx, vals, stats=True)
     # Atomics add in an order that changes from run to run: sums to a tolerance.
     assert_sums_close(got[0], want[0], want[1])
@@ -200,8 +211,6 @@ def test_table_scatter_kernel_is_repeatable(cuda, stream):
 
 
 def test_table_scatter_call_launches(cuda):
-    from rein48_tpu_torch.utils import profiling
-
     idx, vals = table_inputs(16384, 65536, cuda)
     r = profiling.device_breakdown(lambda: tables.mxu_scatter_stats(65536, idx, vals), reps=1, top=8)
     assert r["launches"] == 2, r  # the zero fill and the kernel
@@ -210,7 +219,7 @@ def test_table_scatter_call_launches(cuda):
 def test_table_kernels_reject_bad_inputs(cuda):
     table = torch.zeros(256, device=cuda)
     idx = torch.zeros(8, dtype=torch.int32, device=cuda)
-    before = dict(tables.launches)
+    before = counts("tables.")
     with pytest.raises(ValueError, match="idx must be torch.int32"):
         tables.mxu_gather(table, idx.long())
     with pytest.raises(ValueError, match="idx must be torch.int32 on cuda"):
@@ -219,7 +228,7 @@ def test_table_kernels_reject_bad_inputs(cuda):
         tables.mxu_scatter_stats(256, idx, torch.zeros(8, dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         tables.mxu_scatter_sum(256, idx, torch.zeros((8, 2), device=cuda)[:, 0])
-    assert tables.launches == before
+    assert counts("tables.") == before
 
 
 def test_ntuple_mxu_backend_matches_torch_backend(cuda):
@@ -272,9 +281,9 @@ def test_cached_gather_kernel_is_bit_equal(cuda, n):
     size = 16**5
     rm, hot, idx, _ = hot_prefix_inputs(n, size, 1024, cuda, seed=n)
     table = torch.randn(size, generator=torch.Generator().manual_seed(1)).to(cuda)
-    before = dict(hbm_tables.launches)
+    before = count("hbm_tables.cached_gather")
     got = hbm_tables.cached_gather(table, rm, hot, idx.reshape(1, -1), prefix_rows=1024)
-    assert hbm_tables.launches["cached_gather"] == before["cached_gather"] + 1
+    assert count("hbm_tables.cached_gather") == before + 1
     assert got.shape == (1, n) and torch.equal(got[0], hbm_tables.cached_gather_reference(table, rm, idx))
 
 
@@ -328,9 +337,9 @@ SCATTER_CASES = [("random", n, 2048, cr) for n in (1, 16384, 40000) for cr in (1
 @pytest.mark.parametrize("stream, n, k, cold_capacity_rows", SCATTER_CASES)
 def test_cached_scatter_kernel_matches_plain(cuda, stream, n, k, cold_capacity_rows):
     hot, idx, err = scatter_stream(stream, n, k, cold_capacity_rows, cuda, seed=n + k + cold_capacity_rows)
-    before = dict(hbm_tables.launches)
+    before = count("hbm_tables.cached_scatter")
     got = hbm_tables.cached_scatter_blocks(hot, idx, err, prefix_rows=k, cold_capacity_rows=cold_capacity_rows)
-    assert hbm_tables.launches["cached_scatter"] == before["cached_scatter"] + 1
+    assert count("hbm_tables.cached_scatter") == before + 1
     want = hbm_tables.cached_scatter_stats_reference(hot, idx, err, cold_capacity_rows)
     assert_scatter_matches(got, want)
     *_, overflow = hbm_tables.cached_scatter_stats(hot, idx, err, prefix_rows=k, cold_capacity_rows=cold_capacity_rows)
@@ -355,8 +364,6 @@ def test_cached_scatter_kernel_is_repeatable(cuda, stream, k):
 
 @pytest.mark.parametrize("k", [2048, 8192])
 def test_cached_scatter_call_sorts_nothing(cuda, k):
-    from rein48_tpu_torch.utils import profiling
-
     hot, idx, err = scatter_stream("random", 65536, k, 16, cuda)
     r = profiling.device_breakdown(lambda: hbm_tables.cached_scatter_stats(hot, idx, err, prefix_rows=k), reps=1, top=8)
     assert r["launches"] <= 3 and not any("sort" in t["kernel"].lower() for t in r["top"]), r
@@ -365,14 +372,14 @@ def test_cached_scatter_call_sorts_nothing(cuda, k):
 def test_hot_prefix_kernels_reject_bad_inputs(cuda):
     rm, hot, idx, err = hot_prefix_inputs(64, 16**4, 128, cuda)
     table = torch.zeros(16**4, device=cuda)
-    before = dict(hbm_tables.launches)
+    before = counts("hbm_tables.")
     with pytest.raises(ValueError, match="idx must be torch.int32 on cuda"):
         hbm_tables.cached_gather(table, rm, hot, idx.cpu(), prefix_rows=128)
     with pytest.raises(ValueError, match="hot_rows must have shape"):
         hbm_tables.cached_scatter_stats(hot[:64], idx, err, prefix_rows=128)
     with pytest.raises(ValueError, match="err must be torch.float32"):
         hbm_tables.cached_scatter_stats(hot, idx, err.half(), prefix_rows=128)
-    assert hbm_tables.launches == before
+    assert counts("hbm_tables.") == before
 
 
 def test_ntuple_cached_backend_matches_torch_backend(cuda):
@@ -392,9 +399,9 @@ def test_ntuple_cached_backend_matches_torch_backend(cuda):
         b = {k: v[hbm_tables.physical_index(a[f"{k[:2]}_rm"], rows)] for k, v in a.items() if v.dtype == torch.float32}
         scale = {k: v.abs() for k, v in b.items()}
         assert_values_match(cached, plain, a, b, boards)
-        before = dict(ntuple.cached_windows)
+        before = count(f"ntuple.cached_{branch}")
         cached.td_apply_delayed(a, boards, err, 1.0)
-        assert ntuple.cached_windows[branch] == before[branch] + 2
+        assert count(f"ntuple.cached_{branch}") == before + 2
         plain.td_apply_delayed(b, boards, err, 1.0)
         plain.td_apply_delayed(scale, boards, err.abs(), 1.0)  # the same update on magnitudes
         for k in b:
@@ -440,9 +447,9 @@ def test_ntuple_value_kernel_is_bit_equal(cuda, preset, symmetric, cached, n, of
     boards = value_boards(n, cuda, seed=n + offset, offset=offset)
     layout = net._layout
     for b in (boards, boards.mT.contiguous().mT):  # row-major, and stored transposed as the engine's afterstates
-        before = dict(value_ops.launches)
+        before = count("ntuple_value.launches")
         got = value_ops.ntuple_value(b, tabs, layout, rowmaps)
-        assert value_ops.launches["ntuple_value"] == before["ntuple_value"] + (n > 0)
+        assert count("ntuple_value.launches") == before + (n > 0)
         want = value_ops.ntuple_value_reference(net.indices(b), tabs, rowmaps)
         assert got.shape == (n,) and torch.equal(got, want)
         assert torch.equal(value_ops.ntuple_value(b, tabs, layout, rowmaps), got)  # the same bits again
@@ -453,24 +460,24 @@ def test_ntuple_value_kernel_is_bit_equal(cuda, preset, symmetric, cached, n, of
 def test_ntuple_value_kernel_groups_continue_the_sum(cuda, tuples, symmetric):
     net, _, tabs, _ = value_inputs(tuples, symmetric, False, cuda)
     boards = value_boards(1000, cuda, seed=2)
-    before = value_ops.launches["ntuple_value"]
+    before = count("ntuple_value.launches")
     got = value_ops.ntuple_value(boards, tabs, net._layout)
-    assert value_ops.launches["ntuple_value"] == before + len(net._layout.groups) == before + 2
+    assert count("ntuple_value.launches") == before + len(net._layout.groups) == before + 2
     assert torch.equal(got, value_ops.ntuple_value_reference(net.indices(boards), tabs))
 
 
 @pytest.mark.parametrize("backend", ["mxu", "cached"])
 def test_ntuple_value_is_one_launch(cuda, backend):
-    from rein48_tpu_torch.utils import profiling
-
     tuples = ntuple.SJ_2X4 if backend == "mxu" else ntuple.YEH_4X6
     net, params, _, _ = value_inputs(tuples, True, backend == "cached", cuda)
     after = value_boards(4096, cuda).view(1024, 4, 4, 4).mT  # the trainer's afterstates: transposed boards
-    before = {**value_ops.launches, **tables.launches, **hbm_tables.launches}
+    names = ("ntuple_value.launches", "tables.table_gather", "tables.table_scatter", "hbm_tables.cached_gather",
+             "hbm_tables.cached_scatter")
+    before = {k: count(k) for k in names}
     net.value(params, after)
-    counts = {**value_ops.launches, **tables.launches, **hbm_tables.launches}
-    assert {k: counts[k] - before[k] for k in counts} == {
-        "ntuple_value": 1, "table_gather": 0, "table_scatter": 0, "cached_gather": 0, "cached_scatter": 0,
+    assert {k: count(k) - before[k] for k in names} == {
+        "ntuple_value.launches": 1, "tables.table_gather": 0, "tables.table_scatter": 0, "hbm_tables.cached_gather": 0,
+        "hbm_tables.cached_scatter": 0,
     }
     r = profiling.device_breakdown(lambda: net.value(params, after), reps=1, top=4)
     assert r["launches"] == 1, r
@@ -480,7 +487,7 @@ def test_ntuple_value_kernel_rejects_bad_inputs(cuda):
     net, _, tabs, rowmaps = value_inputs(ntuple.SJ_2X4, True, True, cuda)
     boards = value_boards(8, cuda)
     layout = net._layout
-    before = dict(value_ops.launches)
+    before = count("ntuple_value.launches")
     for args, match in (
         ((boards.to(torch.int32), tabs, layout, rowmaps), "uint8"),
         ((boards.reshape(8, 16), tabs, layout, rowmaps), "uint8"),
@@ -497,7 +504,7 @@ def test_ntuple_value_kernel_rejects_bad_inputs(cuda):
     # such a network, and the packing refuses it.
     with pytest.raises(ValueError, match="1 to 8 tables"):
         value_ops.pack_group([net._cells[0][:1]] * 9)
-    assert value_ops.launches == before
+    assert count("ntuple_value.launches") == before
 
 
 @pytest.mark.parametrize("name", common.OPTIMIZERS)

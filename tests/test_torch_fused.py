@@ -20,6 +20,7 @@ import torch
 from rein48_tpu.engine import fused as jfused
 from rein48_tpu_torch.engine import fused, philox, vector
 from rein48_tpu_torch.testing import edge_boards
+from rein48_tpu_torch.utils import profiling
 
 from test_torch_engine import jax_state, random_boards, torch_state
 
@@ -155,7 +156,7 @@ class TestEdgeBoards:
 class TestWrapper:
     def test_cpu_state_takes_the_plain_path(self):
         state = vector.reset_batch(2, 300, device="cpu")
-        before = fused.launches
+        before = profiling.counters.get("fused.rollout_launches", 0)
         got = fused.rollout_random_fused(state, 5, 40)
         want = fused.rollout_bits_reference(state, philox.philox_bits(5, 40, 300))
         assert_rollouts_equal(_to_numpy(got), _to_numpy(want))
@@ -164,7 +165,7 @@ class TestWrapper:
             _to_numpy(fused.rollout_random_fused(state, 0, 40, bits=bits)),
             _to_numpy(fused.rollout_bits_reference(state, bits)),
         )
-        assert fused.launches == before
+        assert profiling.counters.get("fused.rollout_launches", 0) == before
 
     def test_chunked_philox_equals_one_draw(self):
         # The plain Philox mode draws its words 64 steps at a time.

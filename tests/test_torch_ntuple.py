@@ -43,8 +43,9 @@ from rein48_tpu_torch import cli
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import philox, vector
 from rein48_tpu_torch.models import convert
-from rein48_tpu_torch.ops import hbm_tables, tables
+from rein48_tpu_torch.ops import hbm_tables
 from rein48_tpu_torch.train import ntuple as train
+from rein48_tpu_torch.utils import profiling
 
 from test_torch_engine import jax_state, random_boards
 from test_torch_search_eval import top_two_gap
@@ -191,10 +192,11 @@ class TestNetwork:
         tnet, jnet = nets(ntuple.TINY_2X3, "mxu", "xla")
         tp, _ = both({k: np.asarray(v) for k, v in jnet.init_tc().items()})
         boards, err = td_inputs(8, 12)
-        before = dict(tables.launches)
+        names = ("tables.table_gather", "tables.table_scatter", "ntuple_value.launches")
+        before = [profiling.counters.get(k, 0) for k in names]
         tnet.td_apply_tc(tp, torch.from_numpy(boards), torch.from_numpy(err), 0.5)
         tnet.value(tp, torch.from_numpy(boards))
-        assert tables.launches == before
+        assert [profiling.counters.get(k, 0) for k in names] == before
 
     def test_backends_validated(self):
         with pytest.raises(ValueError, match="mxu"):
@@ -664,11 +666,11 @@ class TestHotPrefixNetwork:
         tp, jp = both(cached_tables(jnet, 24, tc=tc))
         boards, err = td_inputs(96, 25)
         boards[48:] = boards[:48]  # entries hit several times in the window
-        before = dict(ntuple.cached_windows)
+        before = profiling.counters.get(f"ntuple.cached_{branch}", 0)
         got = tnet.td_apply_delayed(tp, torch.from_numpy(boards), torch.from_numpy(err), 0.4, tc=tc)
         want = jnet.td_apply_delayed(jp, jnp.asarray(boards), jnp.asarray(err), 0.4, tc=tc)
         # 768 lookups per table, about three quarters cold: 128 slots overflow, 2,048 do not.
-        assert ntuple.cached_windows[branch] == before[branch] + 2
+        assert profiling.counters[f"ntuple.cached_{branch}"] == before + 2
         assert_tables_close(got, want)
 
     def test_refresh_cache_keeps_values_and_matches_jax(self):
@@ -711,10 +713,12 @@ class TestHotPrefixTrainer:
 
     @pytest.mark.parametrize("mode", ["step", "delayed"])
     def test_matches_torch_trainer(self, mode):
-        launched, windows = dict(hbm_tables.launches), dict(ntuple.cached_windows)
+        names = ("hbm_tables.cached_gather", "hbm_tables.cached_scatter", "ntuple.cached_fast", "ntuple.cached_fallback")
+        before = [profiling.counters.get(k, 0) for k in names]
         sc, _ = self.train(mode, "cached")
         st, _ = self.train(mode, "torch")
-        assert hbm_tables.launches == launched  # the CPU runs the plain versions
+        counts = [profiling.counters.get(k, 0) - b for k, b in zip(names, before)]
+        assert counts[:2] == [0, 0]  # the CPU runs the plain versions
         np.testing.assert_array_equal(sc.env.boards.numpy(), st.env.boards.numpy())
         np.testing.assert_array_equal(sc.prev_after.numpy(), st.prev_after.numpy())
         # A refresh after update 2 saw real heat and moved rows.
@@ -725,7 +729,7 @@ class TestHotPrefixTrainer:
                 np.testing.assert_array_equal(b, a, err_msg=key)
             else:
                 np.testing.assert_allclose(b, a, rtol=RTOL, atol=ATOL, err_msg=key)
-        n_windows = sum(ntuple.cached_windows[k] - windows[k] for k in windows)
+        n_windows = sum(counts[2:])
         assert n_windows == (2 * 3 * 2 if mode == "delayed" else 0)  # tables x updates x windows
 
     def test_evaluate_matches_unpermuted_torch(self):

@@ -27,6 +27,7 @@ from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.models import convert
 from rein48_tpu_torch.ops import hbm_tables
 from rein48_tpu_torch.ops import ntuple_value as value_ops
+from rein48_tpu_torch.utils import profiling
 
 from test_torch_engine import random_boards
 from test_torch_ntuple import cached_tables
@@ -206,10 +207,10 @@ class TestFusedValue:
         net = port_net(PRESETS[preset], backend, symmetric)
         tp = convert.ntuple_params_from_jax(permuted_tables(net, 4) if backend == "cached" else logical_tables(net, 4), "cpu")
         boards = torch.from_numpy(make_boards((64,), 5))
-        launched = dict(value_ops.launches)
+        launched = profiling.counters.get("ntuple_value.launches", 0)
         for b in (boards, boards.mT.contiguous().mT, boards[::2], boards[:0]):
             assert torch.equal(net.value(tp, b), net.gather_value(tp, b))
-        assert value_ops.launches == launched  # the CPU runs the plain version
+        assert profiling.counters.get("ntuple_value.launches", 0) == launched  # the CPU runs the plain version
 
     @pytest.mark.parametrize("tuples, symmetric", [(WIDE_SYMMETRIC, True), (WIDE_ASYMMETRIC, False)])
     def test_groups_continue_the_sum(self, tuples, symmetric):

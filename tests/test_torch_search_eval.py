@@ -34,9 +34,10 @@ from rein48_tpu.train import common as jcommon
 from rein48_tpu.train import evaluate as jevaluate
 from rein48_tpu_torch import cli
 from rein48_tpu_torch.control import search
-from rein48_tpu_torch.engine import fused, philox, vector
+from rein48_tpu_torch.engine import philox, vector
 from rein48_tpu_torch.models import convert
 from rein48_tpu_torch.train import common, evaluate
+from rein48_tpu_torch.utils import profiling
 
 from test_torch_engine import jax_state, random_boards
 
@@ -239,13 +240,13 @@ class TestTorchCli:
         return json.loads(buf.getvalue().strip().splitlines()[-1])
 
     def test_bench_on_cpu(self):
-        before = fused.launches
+        before = profiling.counters.get("fused.rollout_launches", 0)
         out = self._run(["bench", "--device", "cpu", "--batch", "64", "--unroll", "8", "--rounds", "2"])
         assert out["metric"] == "env_steps_per_sec" and out["engine"] == "plain" and out["value"] > 0
         assert {"unit", "vs_baseline", "median", "device"} <= set(out)
         out = self._run(["bench", "--device", "cpu", "--engine", "fused", "--batch", "64", "--unroll", "8", "--rounds", "2"])
         assert out["engine"] == "fused"
-        assert fused.launches == before  # the plain version on the CPU launches no kernel
+        assert profiling.counters.get("fused.rollout_launches", 0) == before  # the plain version on the CPU launches no kernel
 
     def test_eval_search_on_cpu(self):
         out = self._run(["eval", "--algo", "search", "--depth", "1", "--num-envs", "4", "--max-steps", "6", "--device", "cpu"])

@@ -24,6 +24,7 @@ import torch
 from rein48_tpu.ops import tables as jtables
 from rein48_tpu_torch.agents import ntuple as ntuple_lib
 from rein48_tpu_torch.ops import tables
+from rein48_tpu_torch.utils import profiling
 
 from test_torch_engine import random_boards
 
@@ -138,13 +139,14 @@ class TestWrapper:
         assert tables.MXU_TABLE_MAX == jtables.MXU_TABLE_MAX
 
     def test_cpu_runs_the_plain_version_and_launches_nothing(self):
-        before = dict(tables.launches)
+        names = ("tables.table_gather", "tables.table_scatter")
+        before = [profiling.counters.get(k, 0) for k in names]
         table = torch.arange(256, dtype=torch.float32)
         idx = torch.tensor([3, 3, 255], dtype=torch.int32)
         assert tables.mxu_gather(table, idx).tolist() == [3.0, 3.0, 255.0]
         tables.mxu_scatter_stats(256, idx, torch.ones(3))
         tables.mxu_scatter_sum(256, idx, torch.ones(3))
-        assert tables.launches == before
+        assert [profiling.counters.get(k, 0) for k in names] == before
 
     @pytest.mark.parametrize(
         "table, idx, match",

@@ -7,7 +7,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,30 +35,6 @@ def test_program_flops_passes_keywords_and_counts_backward():
 
     assert flops.program_flops(loss, torch.zeros(4, 16), scale=2.0) == 2 * 4 * 16 * 8
     assert flops.program_flops(lambda x: loss(x, scale=1.0).backward(), torch.zeros(4, 16)) == 2 * (2 * 4 * 16 * 8)
-
-
-class FakeClock:
-    def __init__(self, times):
-        self.times = list(times)
-
-    def __call__(self):
-        return self.times.pop(0)
-
-
-@pytest.mark.parametrize("ticks", [0, 1, 2, 5])
-def test_throughput_counts_as_jax_does(monkeypatch, ticks):
-    # Both meters read the same clock: ticks at 10, 10.5, 11.5, ... and a
-    # reading at 20 for rate().
-    readings = [10.0 + 0.5 * i * (i + 1) / 2 for i in range(ticks)] + [20.0]
-    port, ref = profiling.Throughput(steps_per_call=4096), jprofiling.Throughput(steps_per_call=4096)
-    rates = []
-    for meter, state in ((port, {"boards": torch.ones(2, 4, 4)}), (ref, {"boards": jnp.ones((2, 4, 4))})):
-        monkeypatch.setattr(time, "perf_counter", FakeClock(readings))
-        for _ in range(ticks):
-            meter.tick(state)
-        rates.append(meter.rate())
-    assert rates[0] == rates[1]
-    assert rates[0] == (0.0 if ticks < 2 else (ticks - 1) * 4096 / (20.0 - 10.0))
 
 
 @dataclasses.dataclass
@@ -100,8 +75,8 @@ def test_enable_nan_debugging_raises_on_a_nan_gradient():
 class _Event:
     """A raw profiler event as ``kernel_times`` reads it."""
 
-    def __init__(self, name, device, ns):
-        self._name, self._device, self._ns = name, device, ns
+    def __init__(self, name, device, ns, annotation=False):
+        self._name, self._device, self._ns, self._annotation = name, device, ns, annotation
 
     def name(self):
         return self._name
@@ -112,16 +87,21 @@ class _Event:
     def duration_ns(self):
         return self._ns
 
+    def is_user_annotation(self):
+        return self._annotation
+
 
 def test_kernel_times_sums_device_events_and_counts_launch_calls():
     """Device events with a duration summed by name (µs, calls); the host's
-    kernel-launch calls counted; every other host event, and a device event
-    without a duration, left out. A session on the CPU alone has neither."""
+    kernel-launch calls counted; every other host event, a device event
+    without a duration, and a span's annotation on either timeline, left
+    out. A session on the CPU alone has neither."""
     events = [
         _Event("cudaLaunchKernel", "CPU", 3000), _Event("cuLaunchKernelEx", "CPU", 2000),
         _Event("aten::add", "CPU", 9000), _Event("cudaDeviceSynchronize", "CPU", 5000),
         _Event("add_kernel", "CUDA", 1500), _Event("add_kernel", "CUDA", 2500),
         _Event("Memset (Device)", "CUDA", 700), _Event("marker", "CUDA", 0),
+        _Event("ppo.learn", "CPU", 8000, annotation=True), _Event("ppo.learn", "CUDA", 7000, annotation=True),
     ]
     session = type("Session", (), {})()
     session.profiler = type("Profiler", (), {})()
