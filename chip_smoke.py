@@ -8,7 +8,9 @@
 Builds the CUDA kernels from ``rein48_tpu_torch/csrc`` with ``nvcc``, holds
 each kernel against its plain PyTorch version at the shapes its main path
 gives it (the rollout kernel also on crafted edge boards), times an empty
-kernel as the card's launch floor, drives the port's main paths through
+kernel as the card's launch floor, holds the layer norm kernel against its
+plain version at the PPO minibatch and times it beside the plain version
+and ``F.layer_norm`` (``[layer-norm]``), drives the port's main paths through
 their entry points (the ``bench`` rollout, full-width ResNet
 depth-0/depth-1 ``evaluate_search``, the ``SJ_2X4`` n-tuple trainer
 ``train_ntuple`` in both update modes with its depth-0/depth-1
@@ -102,6 +104,19 @@ INT32_PIPE_OPS = {"IADD3", "LOP3", "ISETP", "SEL", "SHF", "PRMT", "IMNMX", "LEA"
 # three-input XORs: 1.25 x 10 x 4 = 50 instructions. The move itself is one
 # table read per row (engine/lut.py) and is not counted.
 PHILOX_INSTR_PER_STEP = 1.25 * 10 * (2 + 2)
+# The fused layer norm and ReLU at the PPO minibatch: 65,536 boards x 16
+# cells, 64 bf16 channels a row. Its bounds by bytes: the forward reads x
+# and writes the output (2 + 2 B a channel) and the row's float32 mean and
+# rstd (8 B); the backward reads x, dy and the statistics and writes dx.
+LN_BOARDS, LN_CHANNELS = 65536, 64
+LN_FORWARD_BYTES_PER_ROW = 4 * LN_CHANNELS + 8
+LN_BACKWARD_BYTES_PER_ROW = 6 * LN_CHANNELS + 8
+# Its tolerances against the plain version, as tests/test_torch_cuda.py
+# states them: bf16 outputs bit-equal but for at most 1e-3 of them, each one
+# ulp away (or under 1e-6 across the ReLU's 0); dx within one bf16 ulp plus
+# 1e-5 of its largest value; dscale and dbias within 1e-5 of the sum of their
+# terms' magnitudes.
+LN_OFF_SHARE, LN_NEAR_ZERO, LN_GRAD_TOL = 1e-3, 1e-6, 1e-5
 # Depth-1 q-values of the bf16 net on the card against the float32 net on
 # the CPU: a leaf value in [0.4, 1.4] rounds to 2**-7 steps in bf16 and the
 # tower rounds ~10 times; the leaf error measured 0.012 and the q error
@@ -375,6 +390,100 @@ def floor_phase(dev) -> float:
     if f["launches"] != 1 or not f["ms"] > 0:
         raise AssertionError(f"the empty kernel did not time as one launch: {f}")
     return f["ms"]
+
+
+def layer_norm_phase(dev) -> dict:
+    """The fused layer norm and ReLU (``ops/layer_norm.py``) at the PPO
+    minibatch: the forward that keeps the statistics (a learning forward)
+    and the one that does not, and the backward (two launches), against the
+    plain version at the tolerances above, the backward twice bit for bit;
+    the device time of each, the plain version's, and ``F.layer_norm`` then
+    ``relu`` (exact variance, bf16 weights; a yardstick the port never
+    calls); the bounds by bytes."""
+    import torch.nn.functional as F
+
+    from rein48_tpu_torch.ops import layer_norm as ln
+
+    rows, c, bf16 = LN_BOARDS * 16, LN_CHANNELS, torch.bfloat16
+    g = torch.Generator(dev).manual_seed(SEED)
+    x = (torch.randn(rows, c, generator=g, device=dev) * 1.5 + 0.25).to(bf16).requires_grad_(True)
+    scale = (1.0 + 0.2 * torch.randn(c, generator=g, device=dev)).requires_grad_(True)
+    bias = (0.1 * torch.randn(c, generator=g, device=dev)).requires_grad_(True)
+    dy = torch.randn(rows, c, generator=g, device=dev).to(bf16)
+    params = (x, scale, bias)
+
+    def plain_version():
+        return F.relu(ln.layer_norm_reference(x, scale, bias, 1e-6, bf16))
+
+    out = ln.layer_norm_relu(x, scale, bias, 1e-6)
+    plain = plain_version()
+    off = out != plain
+    a, b = out.detach().float()[off], plain.detach().float()[off]
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()))) - 7).clamp(min=LN_NEAR_ZERO)
+    forward_ok = int(off.sum()) <= LN_OFF_SHARE * out.numel() and bool(((a - b).abs() <= ulp).all())
+    got = torch.autograd.grad(out, params, dy, retain_graph=True)
+    again = torch.autograd.grad(out, params, dy, retain_graph=True)
+    repeatable = all(bool(torch.equal(u, v)) for u, v in zip(got, again))
+    # The plain composition's gradients, fed the kernel output's ReLU mask.
+    dm = dy * (out > 0)
+    want = torch.autograd.grad(ln.layer_norm_reference(x, scale, bias, 1e-6, bf16), params, dm)
+    with torch.no_grad():
+        dx, wdx = got[0].float(), want[0].float()
+        dx_ratio = float(((dx - wdx).abs() / (2.0 ** -7 * wdx.abs() + LN_GRAD_TOL * wdx.abs().max())).max())
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        xhat = (xf - mean) * torch.rsqrt(torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0) + 1e-6)
+        terms = {"dscale": (dm.float() * xhat).abs().sum(0), "dbias": dm.float().abs().sum(0)}
+        param_ratio = max(float(((u - v).abs() / (LN_GRAD_TOL * terms[k])).max())
+                          for k, u, v in (("dscale", got[1], want[1]), ("dbias", got[2], want[2])))
+    del xf, xhat, mean, dx, wdx, terms
+    plain_out = plain_version()
+    lib_params = [p.detach().to(bf16).requires_grad_(True) for p in (scale, bias)]
+
+    def library():
+        return F.relu(F.layer_norm(x, (c,), *lib_params, 1e-6))
+
+    lib_out = library()
+
+    def no_stats():
+        with torch.no_grad():
+            return ln.layer_norm_relu(x, scale, bias, 1e-6)
+
+    t = {
+        "forward": timed(lambda: ln.layer_norm_relu(x, scale, bias, 1e-6)),
+        "forward_no_stats": timed(no_stats),
+        "backward": timed(lambda: torch.autograd.grad(out, params, dy, retain_graph=True)),
+        "plain_forward": timed(plain_version),
+        "plain_backward": timed(lambda: torch.autograd.grad(plain_out, params, dy, retain_graph=True)),
+        "library_forward": timed(library),
+        "library_backward": timed(lambda: torch.autograd.grad(lib_out, [x] + lib_params, dy, retain_graph=True)),
+    }
+    bound_f = 1e3 * rows * LN_FORWARD_BYTES_PER_ROW / HBM_BYTES_PER_S
+    bound_b = 1e3 * rows * LN_BACKWARD_BYTES_PER_ROW / HBM_BYTES_PER_S
+    log("layer-norm", rows=rows, channels=c, elements_off=int(off.sum()), forward_within_tol=forward_ok,
+        dx_err_over_tol=f"{dx_ratio:.3g}", params_err_over_tol=f"{param_ratio:.3g}", backward_repeatable=repeatable,
+        **{f"{k}_ms": round(v["ms"], 5) for k, v in t.items()},
+        **{f"{k}_launches": v["launches"] for k, v in t.items()},
+        forward_bound_ms=round(bound_f, 5), backward_bound_ms=round(bound_b, 5),
+        kernels=json.dumps(t["forward"]["kernels"]), backward_kernels=json.dumps(t["backward"]["kernels"]))
+    if not (forward_ok and dx_ratio <= 1 and param_ratio <= 1 and repeatable):
+        raise AssertionError("the layer norm kernel disagrees with its plain version or differs between runs")
+    if (t["forward"]["launches"], t["forward_no_stats"]["launches"], t["backward"]["launches"]) != (1, 1, 2):
+        raise AssertionError(f"the layer norm made {t['forward']['launches']} / {t['backward']['launches']} launches")
+    return {"rows": rows, "t": t, "bound_f": bound_f, "bound_b": bound_b, "elements_off": int(off.sum()),
+            "max_err": float((a - b).abs().max()) if a.numel() else 0.0}
+
+
+# The layer norm kernel's counters (``ops/layer_norm.py``) by the names this
+# script reports them under, and the part of its kernels' names that the
+# profiler shows. ``actor_critic_train_phase`` keeps them per trainer: the
+# launches, the device ms and the bound by bytes of one update.
+LN_COUNTERS = {
+    "forward": "layer_norm.forward_launches", "backward": "layer_norm.backward_launches",
+    "backward_sum": "layer_norm.backward_sum_launches", "bound_bytes": "layer_norm.bound_bytes",
+}
+LN_KERNEL = "layer_norm_relu"
+LN_PER_UPDATE: dict = {}
 
 
 # The launch counters of the table and value kernels in the port's registry
@@ -1521,7 +1630,15 @@ def actor_critic_train_phase(name, dev, cfg, updates, ckpt_dir=None):
     def update():
         box[0] = step(box[0])[0]
 
-    prof = profiling.device_breakdown(update, warmup=0, reps=1, top=5)
+    for c in LN_COUNTERS.values():
+        set_counter(c, 0)
+    # Every kernel of the update ranked, so that the layer norm's are all found.
+    prof = profiling.device_breakdown(update, warmup=0, reps=1, top=1 << 20)
+    norms = {k: counter(c) for k, c in LN_COUNTERS.items()}
+    norms["ms"] = sum(t["ms"] for t in prof["top"] if LN_KERNEL in t["kernel"])
+    norms["bound_ms"] = 1e3 * norms.pop("bound_bytes") / HBM_BYTES_PER_S
+    norms["roofline"] = 100.0 * norms["bound_ms"] / norms["ms"] if norms["ms"] else 0.0
+    LN_PER_UPDATE[name] = norms
     state = box[0]
     last = history[-1]
     record = {k: round(last[k], 6) for k in ("loss", "entropy", "approx_kl", "clip_frac", "after_loss", "grad_norm",
@@ -1534,10 +1651,13 @@ def actor_critic_train_phase(name, dev, cfg, updates, ckpt_dir=None):
         model_tflops_per_s=round(rate * per_frame / 1e12, 3), mfu=round(flops.mfu(rate, per_frame), 5),
         mfu_peak="989 TFLOP/s bf16 dense (H100 SXM data sheet)", peak_gib=round(peak_gib, 3),
         profiled_update=json.dumps({k: prof[k] for k in ("wall_ms", "device_ms", "busy_share", "launches")}),
-        top_kernels=json.dumps(prof["top"]), kernel_launches=json.dumps(launched), records=json.dumps(record),
+        top_kernels=json.dumps(prof["top"][:5]), kernel_launches=json.dumps(launched), records=json.dumps(record),
+        layer_norm_per_update=json.dumps({k: round(v, 5) for k, v in norms.items()}),
     )
     if any(launched.values()):
         raise AssertionError(f"{name} launched a kernel of another path: {launched}")
+    if not 0 < norms["backward"] == norms["backward_sum"] <= norms["forward"] or not norms["ms"]:
+        raise AssertionError(f"{name}: the ResNet's layer norms did not all run the kernel: {norms}")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3113,6 +3233,8 @@ def main() -> int:
     # runs, so that no profiler session precedes those.
     lap("rollout kernel at the bench shape")
     floor_ms = floor_phase(dev)
+    norm = layer_norm_phase(dev)
+    lap("layer norm kernel")
     state, net, gathers, window = ntuple_trainer_inputs(dev)
     gather, scatter = table_kernel_phase(state, net, gathers, window)
     after = nt._all_afterstates(state.env.boards)[0]
@@ -3151,7 +3273,8 @@ def main() -> int:
     # 16-20. The deep afterstate-TD trainer at its flagship configuration
     # through its entry point, the bf16 net against float32, its checkpoint,
     # search with the trained value net at the leaves, and the CLI. This path runs
-    # no kernel of the port (cuDNN and cuBLAS do its dense work).
+    # no kernel of the port but the layer norm (cuDNN and cuBLAS do the rest of
+    # its dense work).
     with tempfile.TemporaryDirectory() as ckpt_dir:
         state, cfg, step, batch = afterstate_train_phase(dev, ckpt_dir)
         afterstate_bf16_phase(state, cfg, step, batch)
@@ -3165,7 +3288,8 @@ def main() -> int:
     # their entry points: PPO, PPO with the afterstate critic and its
     # checkpoint (restored on the card and on the CPU), A3C in one pass over
     # 262,144 boards, the reference-parity regime, the CLI, and PPO's bf16
-    # loss against float32. No kernel of the port is on this path either.
+    # loss against float32. Of the port's kernels only the layer norm is on
+    # this path.
     ppo_trained = actor_critic_train_phase("ppo/train", dev, ppo_config(), PPO_UPDATES)
     with tempfile.TemporaryDirectory() as ckpt_dir:
         cfg = ppo_config(critic=True)
@@ -3185,7 +3309,8 @@ def main() -> int:
     # 28-35. The single-game surface on the card (Game, play, parity with the
     # C oracle), then the replay family through its entry points: the DQN
     # flagship with its checkpoint and eval, n-step DQN, the dqn-4k preset,
-    # DDPG, and the CLI. No kernel of the port is on these paths.
+    # DDPG, and the CLI. Of the port's kernels only the layer norm (the DQN
+    # flagship's ResNet) is on these paths.
     game_phase(dev)
     parity_phase()
     lap("Game, play, parity")
@@ -3217,7 +3342,8 @@ def main() -> int:
     capability_phase(dev, "ntuple", backends=("auto", "cached"))
     lap("capability: the n-tuple recipe's curve, auto and cached")
     # 45-47. The deep trainers' learning against the JAX runs' curves, and
-    # random play's floor. No kernel of the port is on these paths.
+    # random play's floor. Of the port's kernels only the layer norm is on
+    # these paths.
     random_tile_sum = random_play_phase(dev)
     for name in ("ppo", "afterstate", "a3c"):
         capability_phase(dev, name, random_tile_sum)
@@ -3225,8 +3351,8 @@ def main() -> int:
     lap("capability: PPO, afterstate TD and A3C against JAX's curves")
     # 48-49. DQN's learning past the first wrap of its 2**20-slot buffer, 1-step
     # and n-step: Q-values and TD errors against the JAX runs', the buffer
-    # full before the first check, the saved cursor. No kernel of the port
-    # is on these paths.
+    # full before the first check, the saved cursor. Of the port's kernels
+    # only the layer norm is on these paths.
     for name in ("dqn", "dqn_nstep"):
         capability_phase(dev, name, random_tile_sum)
         torch.cuda.empty_cache()
@@ -3342,6 +3468,47 @@ def main() -> int:
         "composed_launches_cached": yeh["composed_launches"],
         "launches_per_update": {name: r["launches"] for (name, variant), r in value_launches.items() if variant == "fused"},
         "composed_launches_per_update": {name: r["launches"] for (name, variant), r in value_launches.items() if variant == "composed"},
+    })
+    nt_, ln_ppo = norm["t"], LN_PER_UPDATE["ppo/train"]
+    launches = ln_ppo["forward"] + ln_ppo["backward"] + ln_ppo["backward_sum"]
+    kernels.append({
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "rein48_tpu_torch/csrc/layer_norm.cu",
+        # No Pallas kernel: in the JAX package XLA fuses Flax's nn.LayerNorm.
+        "replaces": None,
+        "replaces_note": "the XLA fusion of Flax's nn.LayerNorm and nn.relu (rein48_tpu/models/nets.py)",
+        # Launches of one PPO flagship update, counted in [ppo/train]: the
+        # acting and learning forwards, the backwards and their partial sums.
+        # "ms" and "bound_ms" are the mean launch of that update, so that
+        # "gap_ms" is the update's; "pair_ms", "pair_bound_ms", "plain_ms" and
+        # "library_ms" are a forward and a backward at the PPO minibatch.
+        "launches": launches,
+        "launches_per_update": {k: ln_ppo[k] for k in ("forward", "backward", "backward_sum")},
+        "update_ms": round(ln_ppo["ms"], 5),
+        "update_bound_ms": round(ln_ppo["bound_ms"], 5),
+        "update_roofline": round(ln_ppo["roofline"], 3),
+        "equal": False,
+        "elements_off": norm["elements_off"],
+        "max_abs_err": norm["max_err"],
+        "n": norm["rows"],
+        "ms": round(ln_ppo["ms"] / launches, 6),
+        "pair_ms": round(nt_["forward"]["ms"] + nt_["backward"]["ms"], 5),
+        "forward_ms": nt_["forward"]["ms"],
+        "forward_no_stats_ms": nt_["forward_no_stats"]["ms"],
+        "backward_ms": nt_["backward"]["ms"],
+        "plain_ms": round(nt_["plain_forward"]["ms"] + nt_["plain_backward"]["ms"], 5),
+        "plain_forward_ms": nt_["plain_forward"]["ms"],
+        "plain_backward_ms": nt_["plain_backward"]["ms"],
+        "bound_ms": round(ln_ppo["bound_ms"] / launches, 6),
+        "pair_bound_ms": round(norm["bound_f"] + norm["bound_b"], 5),
+        "forward_bound_ms": round(norm["bound_f"], 5),
+        "backward_bound_ms": round(norm["bound_b"], 5),
+        "bound_by": "bytes",
+        "library_ms": round(nt_["library_forward"]["ms"] + nt_["library_backward"]["ms"], 5),
+        "library_forward_ms": nt_["library_forward"]["ms"],
+        "library_backward_ms": nt_["library_backward"]["ms"],
+        "library_note": "F.layer_norm then relu, exact variance, bf16 weights: a yardstick the port never calls",
     })
     for entry in kernels:
         # The main path's time over the least any launch of this work can take.

@@ -19,7 +19,7 @@ activations stay channels last: a convolution sees them as NCHW with
 channels-last strides, which is the layout cuDNN wants, and the heads
 flatten in the (h, w, c) order the Flax nets use. Parameters are float32
 and computation runs in ``dtype``, as ``dtype=`` does in Flax; the layer
-norms reduce in float32.
+norms reduce in float32, each fused with the ReLU that follows it.
 """
 
 from __future__ import annotations
@@ -29,6 +29,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rein48_tpu_torch.ops import layer_norm
 
 NUM_ACTIONS = 4
 
@@ -43,25 +45,25 @@ def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> None:
     nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-class LayerNorm(nn.Module):
-    """Flax ``nn.LayerNorm`` over the last (channel) axis.
+class LayerNormReLU(nn.Module):
+    """Flax ``nn.LayerNorm`` over the last (channel) axis, then the ReLU
+    that follows every norm of the ResNet.
 
     Epsilon 1e-6, statistics in float32 with the fast variance
-    ``E[x^2] - E[x]^2`` clipped at 0, output cast to ``dtype``.
+    ``E[x^2] - E[x]^2`` clipped at 0, output in the input's type (the
+    model's ``dtype``, which the convolutions give it). On the card one
+    launch of the kernel of ``ops/layer_norm.py`` (and two backward); on
+    the CPU the plain float32 composition.
     """
 
-    def __init__(self, channels: int, dtype=torch.bfloat16, eps: float = 1e-6):
+    def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.dtype, self.eps = dtype, eps
+        self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)
-        mean = x.mean(-1, keepdim=True)
-        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
-        return y.to(self.dtype)
+        return layer_norm.layer_norm_relu(x, self.scale, self.bias, self.eps)
 
 
 class Conv(nn.Module):
@@ -206,14 +208,14 @@ class ResBlock(nn.Module):
 
     def __init__(self, channels: int, dtype=torch.bfloat16):
         super().__init__()
-        self.norm0 = LayerNorm(channels, dtype)
+        self.norm0 = LayerNormReLU(channels)
         self.conv0 = Conv(channels, channels, dtype)
-        self.norm1 = LayerNorm(channels, dtype)
+        self.norm1 = LayerNormReLU(channels)
         self.conv1 = Conv(channels, channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv0(F.relu(self.norm0(x)))
-        h = self.conv1(F.relu(self.norm1(h)))
+        h = self.conv0(self.norm0(x))
+        h = self.conv1(self.norm1(h))
         return x + h
 
 
@@ -230,7 +232,7 @@ class ResNetPolicy(nn.Module):
         self.channels, self.num_blocks, self.dtype = channels, num_blocks, dtype
         self.stem = Conv(in_channels, channels, dtype)
         self.blocks = nn.ModuleList(ResBlock(channels, dtype) for _ in range(num_blocks))
-        self.norm = LayerNorm(channels, dtype)
+        self.norm = LayerNormReLU(channels)
         flat = 16 * channels
         self.policy_fc = Dense(flat, channels, dtype)
         self.policy_out = Dense(channels, NUM_ACTIONS, dtype)
@@ -243,7 +245,7 @@ class ResNetPolicy(nn.Module):
         x = self.stem(obs.reshape((-1,) + obs.shape[-3:]))
         for block in self.blocks:
             x = block(x)
-        flat = F.relu(self.norm(x)).flatten(1)  # (h, w, c) order, as in Flax
+        flat = self.norm(x).flatten(1)  # (h, w, c) order, as in Flax
         logits = self.policy_out(F.relu(self.policy_fc(flat)))
         value = self.value_out(F.relu(self.value_fc(flat)))
         return (

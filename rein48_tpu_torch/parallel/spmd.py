@@ -35,16 +35,25 @@ def _unflat(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> list[torch.Tens
     return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in like]), like)]
 
 
+def _like(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``v`` (contiguous) in ``g``'s dtype and memory layout: a convolution's
+    channels-last weight gradient stays channels last, so that what is
+    reduced over it afterwards (the global norm) adds in the same order as
+    without a group."""
+    return v.to(g.dtype) if g.is_contiguous() else torch.empty_like(g).copy_(v)
+
+
 def psum_grads(grads: Sequence[Optional[torch.Tensor]], params: Sequence[torch.Tensor], group) -> list[torch.Tensor]:
     """Sum a gradient list over ``group``: every gradient in one flat float32
-    buffer, one ``all_reduce``; every rank receives the same bits. ``None``
-    (an unused parameter) counts as zero."""
+    buffer, one ``all_reduce``; every rank receives the same bits, each
+    gradient in its own layout. ``None`` (an unused parameter) counts as
+    zero."""
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
     if group is None:
         return grads
     flat = _flat([g.to(torch.float32) for g in grads])
     dist.all_reduce(flat, group=group)
-    return [v.to(g.dtype) for v, g in zip(_unflat(flat, grads), grads)]
+    return [_like(v, g) for v, g in zip(_unflat(flat, grads), grads)]
 
 
 def psum_mean_grads(grads: Sequence[Optional[torch.Tensor]], group, params: Sequence[torch.Tensor] | None = None):

@@ -17,11 +17,13 @@ import dataclasses
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from rein48_tpu_torch import Game, native
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
-from rein48_tpu_torch.ops import hbm_tables, tables
+from rein48_tpu_torch.models import nets, obs
+from rein48_tpu_torch.ops import hbm_tables, layer_norm, tables
 from rein48_tpu_torch.testing import edge_boards
 from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
@@ -505,6 +507,163 @@ def test_ntuple_value_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="1 to 8 tables"):
         value_ops.pack_group([net._cells[0][:1]] * 9)
     assert count("ntuple_value.launches") == before
+
+
+# The fused layer norm and ReLU (ops/layer_norm.py) against its plain version
+# (layer_norm_reference then F.relu) on the card. Forward: a bfloat16 output
+# is bit-equal to the plain version's but for at most LN_OFF_SHARE of its
+# elements, each at most one bfloat16 ulp away (or under LN_NEAR_ZERO where
+# the value lies at 0, across the ReLU): the kernel adds the row sums in
+# another order, so its statistics differ by float32 ulps and move a value
+# that lies on a bfloat16 rounding boundary. A float32 output within
+# LN_F32_TOL (test_torch_models.py's float32 tolerance). Backward: against the
+# plain composition's autograd, fed the kernel's own ReLU mask (where the two
+# forwards' outputs differ across 0 the masks differ, and so must the
+# gradients): dx within one ulp of its type plus LN_GRAD_TOL of its largest
+# value; dscale and dbias within LN_GRAD_TOL of the sum of their terms'
+# magnitudes (float32 sums over up to a million rows in another order).
+LN_OFF_SHARE = 1e-3
+LN_NEAR_ZERO = 1e-6
+LN_F32_TOL = 1e-5
+LN_GRAD_TOL = 1e-5
+BF16 = torch.bfloat16
+LN_CASES = [  # rows, channels, the type of x, the output, dy and dx
+    (8192 * 16, 64, BF16), (16384 * 16, 64, BF16), (65536 * 16, 64, BF16),
+    (1000, 8, torch.float32), (1000, 128, BF16), (33, 64, BF16),
+    (4097, 48, BF16), (777, 256, torch.float32), (300, 1, torch.float32),
+    (513, 64, torch.float32), (2049, 256, BF16),
+]
+LN_COUNTERS = ("layer_norm.forward_launches", "layer_norm.backward_launches", "layer_norm.backward_sum_launches")
+
+
+def ln_inputs(rows: int, c: int, dtype, device, seed: int = 0):
+    """x (its first rows constant: where the variance clamp acts), a scale
+    around 1 and a bias around 0, requiring gradients; dy."""
+    g = torch.Generator(device).manual_seed(seed)
+    x = (torch.randn(rows, c, generator=g, device=device) * 1.5 + 0.25).to(dtype)
+    const = min(rows, 5)
+    x[:const] = (torch.arange(const, device=device) * 0.375 - 1.0).to(dtype)[:, None]  # exact in either type
+    scale = 1.0 + 0.2 * torch.randn(c, generator=g, device=device)
+    bias = 0.1 * torch.randn(c, generator=g, device=device)
+    dy = torch.randn(rows, c, generator=g, device=device).to(dtype)
+    return [t.requires_grad_(True) for t in (x, scale, bias)], dy
+
+
+def ln_plain(x, scale, bias):
+    return F.relu(layer_norm.layer_norm_reference(x, scale, bias, 1e-6, x.dtype))
+
+
+def assert_ln_forward_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=LN_F32_TOL, atol=LN_F32_TOL)
+        return
+    a, b = got.float(), want.float()
+    off = a != b
+    assert int(off.sum()) <= LN_OFF_SHARE * a.numel(), f"{int(off.sum())} of {a.numel()} elements differ"
+    big = torch.maximum(a.abs(), b.abs())[off]
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool(((a - b).abs()[off] <= torch.maximum(ulp, torch.full_like(ulp, LN_NEAR_ZERO))).all())
+
+
+def ln_masked_reference_grads(x, scale, bias, dy, out):
+    """The plain composition's gradients, fed the kernel output's ReLU mask."""
+    ref = layer_norm.layer_norm_reference(x, scale, bias, 1e-6, x.dtype)
+    return torch.autograd.grad(ref, (x, scale, bias), dy * (out > 0))
+
+
+@pytest.mark.parametrize("rows, c, dtype", LN_CASES)
+def test_layer_norm_kernel_matches_plain(cuda, rows, c, dtype):
+    (x, scale, bias), dy = ln_inputs(rows, c, dtype, cuda)
+    before = {k: count(k) for k in LN_COUNTERS}
+    out = layer_norm.layer_norm_relu(x, scale, bias, 1e-6)
+    assert {k: count(k) - before[k] for k in LN_COUNTERS} == dict(zip(LN_COUNTERS, (1, 0, 0)))
+    assert_ln_forward_close(out, ln_plain(x, scale, bias))
+    assert bool((out >= 0).all())
+    with torch.no_grad():  # no statistics kept: the same output
+        assert torch.equal(layer_norm.layer_norm_relu(x, scale, bias, 1e-6), out)
+    got = torch.autograd.grad(out, (x, scale, bias), dy, retain_graph=True)
+    assert {k: count(k) - before[k] for k in LN_COUNTERS} == dict(zip(LN_COUNTERS, (2, 1, 1)))
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    want = ln_masked_reference_grads(x, scale, bias, dy, out)
+    dx, wdx = got[0].float(), want[0].float()
+    ulp = 2.0 ** -7 if dtype == BF16 else LN_F32_TOL
+    assert bool(((dx - wdx).abs() <= ulp * wdx.abs() + LN_GRAD_TOL * wdx.abs().max()).all())
+    with torch.no_grad():
+        dm = (dy * (out > 0)).float()
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        xhat = (xf - mean) * torch.rsqrt(torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0) + 1e-6)
+        for name, a, b, terms in (("dscale", got[1], want[1], dm * xhat), ("dbias", got[2], want[2], dm)):
+            assert bool(((a - b).abs() <= LN_GRAD_TOL * terms.abs().sum(0) + 1e-30).all()), name
+    # The same bits on a second run: no float atomics.
+    again = torch.autograd.grad(out, (x, scale, bias), dy)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_layer_norm_kernel_unaligned_rows(cuda):
+    """Rows that start off 16 bytes take the generic layout, a channel a lane,
+    which adds the row sums in another order: within the tolerance of the
+    plain version, forward and backward, and the same bits twice."""
+    (x, scale, bias), dy = ln_inputs(4000 * 64 + 1, 1, BF16, cuda, seed=3)
+    x = x.detach()[1:].reshape(4000, 64).requires_grad_(True)  # contiguous, 2 bytes off
+    (_, scale, bias), _ = ln_inputs(1, 64, BF16, cuda, seed=4)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    out = layer_norm.layer_norm_relu(x, scale, bias, 1e-6)
+    assert_ln_forward_close(out, ln_plain(x, scale, bias))
+    g = dy[1:].reshape(4000, 64)
+    got = torch.autograd.grad(out, (x, scale, bias), g, retain_graph=True)
+    want = ln_masked_reference_grads(x, scale, bias, g, out)
+    dx, wdx = got[0].float(), want[0].float()
+    assert bool(((dx - wdx).abs() <= 2.0 ** -7 * wdx.abs() + LN_GRAD_TOL * wdx.abs().max()).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, torch.autograd.grad(out, (x, scale, bias), g)))
+
+
+def test_layer_norm_kernel_rejects_bad_inputs(cuda):
+    (x, scale, bias), _ = ln_inputs(64, 64, BF16, cuda)
+    before = {k: count(k) for k in LN_COUNTERS}
+    for args, match in (
+        ((x.detach().half(), scale, bias), "float32 or bfloat16"),
+        ((x.detach().t(), scale, bias), "needs x contiguous"),
+        ((x, scale.detach().cpu(), bias), "scale must be contiguous float32"),
+        ((torch.zeros(4, 300, dtype=BF16, device=cuda), scale, bias), "1 to 256 channels"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            layer_norm.layer_norm_relu(*args)
+    assert {k: count(k) for k in LN_COUNTERS} == before
+
+
+@pytest.mark.parametrize("channels, blocks, dtype", [(64, 4, BF16), (8, 2, torch.float32), (16, 1, BF16)])
+def test_resnet_with_layer_norm_kernel_matches_plain_tower(cuda, monkeypatch, channels, blocks, dtype):
+    """Every norm of the tower one kernel launch forward and one backward
+    (and one partial-sum launch); the outputs within test_torch_models.py's
+    ResNet tolerances of the same tower on the plain path (full float32
+    convolutions and products, as those tolerances assume: a TF32 rounding of
+    a norm's output would move by a TF32 ulp what the kernel moved by a
+    float32 ulp)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    model = nets.ResNetPolicy(channels, blocks, dtype=dtype, generator=torch.Generator().manual_seed(5)).to(cuda)
+    boards = torch.from_numpy(edge_boards(4096)).to(cuda)
+    planes = obs.encode_onehot(boards)
+    before = {k: count(k) for k in LN_COUNTERS}
+    logits, value = model(planes)
+    (logits.square().sum() + value.sum()).backward()
+    norms = 2 * blocks + 1
+    assert {k: count(k) - before[k] for k in LN_COUNTERS} == dict.fromkeys(LN_COUNTERS, norms)
+    grads = [p.grad.clone() for p in model.parameters()]
+    model.zero_grad()
+    logits2, value2 = model(planes)
+    (logits2.square().sum() + value2.sum()).backward()
+    assert all(torch.equal(g, p.grad) for g, p in zip(grads, model.parameters()))  # bit-equal reruns
+    with torch.no_grad():
+        monkeypatch.setattr(layer_norm, "layer_norm_relu", lambda x, scale, bias, eps: ln_plain(x, scale, bias))
+        plain_logits, plain_value = model(planes)
+    tol = dict(atol=0.03, rtol=0) if dtype == BF16 else dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(logits.detach(), plain_logits, **tol)
+    torch.testing.assert_close(value.detach(), plain_value, **tol)
 
 
 @pytest.mark.parametrize("name", common.OPTIMIZERS)

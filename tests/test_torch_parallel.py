@@ -27,7 +27,7 @@ from rein48_tpu_torch.engine import fused, vector
 from rein48_tpu_torch.models import convert, nets
 from rein48_tpu_torch.parallel import mesh as mesh_lib
 from rein48_tpu_torch.parallel import multihost, spmd
-from rein48_tpu_torch.train import a3c, afterstate, dqn, ppo
+from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
 
 from torch_dist_ranks import layout, one_rank
 
@@ -152,6 +152,23 @@ def test_psum_mean_grads_equals_jax_shard_map():
     with one_rank() as m:
         (got,) = spmd.psum_mean_grads([g], m.dp_group)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def test_psum_grads_keep_each_gradient_layout():
+    """A channels-last gradient comes back channels last, so the global norm
+    over the reduced list adds in the order it adds without a group: on one
+    rank the same bits (the one-rank NCCL update of chip_smoke.py is held
+    bit for bit to the update without a mesh)."""
+    g = torch.Generator().manual_seed(0)
+    grads = [torch.randn(64, 16, 3, 3, generator=g).to(memory_format=torch.channels_last),
+             torch.randn(64, generator=g), None, torch.randn(8, 64, 3, 3, generator=g).to(memory_format=torch.channels_last)]
+    params = [torch.zeros(64, 16, 3, 3), torch.zeros(64), torch.zeros(5), torch.zeros(8, 64, 3, 3)]
+    with one_rank() as m:
+        got = spmd.psum_grads(grads, params, m.dp_group)
+    for a, b, p in zip(got, grads, params):
+        want = torch.zeros_like(p) if b is None else b
+        assert torch.equal(a, want) and a.stride() == want.stride()
+    assert torch.equal(common.tree_norm(got), common.tree_norm([torch.zeros(5) if t is None else t for t in grads]))
 
 
 class TestInitialize:
