@@ -1,1 +1,1 @@
-"""One driver per entry point of the port: ``setup(ctx) -> Run``."""
+"""One driver per entry point of the port: ``setup(ctx) -> Run`` and ``tiny(cell) -> cell``."""

@@ -138,3 +138,10 @@ class Run:
 
 def setup(ctx) -> Run:
     return Run(ctx)
+
+
+def tiny(cell):
+    """The cell at a CPU test's size: few games and steps, two small tuples."""
+    cell.traffic.update(batch_size=8, steps_per_update=8)
+    cell.config.update(tuples=[[0, 1, 2], [0, 4, 8]])
+    return cell

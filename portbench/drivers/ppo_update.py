@@ -198,3 +198,11 @@ class Run:
 
 def setup(ctx) -> Run:
     return Run(ctx)
+
+
+def tiny(cell):
+    """The cell at a CPU test's size: few games, steps and minibatches, a
+    narrow tower."""
+    cell.traffic["ppo"].update(batch_size=8, unroll_len=4, num_minibatches=2)
+    cell.config.update(channels=8, num_blocks=1, head_hidden=8)
+    return cell

@@ -112,3 +112,11 @@ class Run:
 
 def setup(ctx) -> Run:
     return Run(ctx)
+
+
+def tiny(cell):
+    """The cell at a CPU test's size: few games and moves, a narrow tower."""
+    cell.traffic.update(games=4)
+    cell.workload.update(warmup_moves=2, traced_moves=2, checked_moves=3)
+    cell.config.update(channels=8, num_blocks=1, head_hidden=8)
+    return cell

@@ -5,9 +5,9 @@ calls from the session's raw events, as the port's
 ``utils/profiling.kernel_times`` does (an 80 k-launch session reads in
 seconds, where ``key_averages()`` takes tens of seconds), and adds the
 device's busy time (the union of the intervals of every device event),
-the traced window, the operations that took the most time and the
-longest idle gaps named by the innermost host operation that was running
-across each gap.
+the traced window, every device operation's total time by name, the
+operations that took the most time and the longest idle gaps named by the
+innermost host operation that was running across each gap.
 """
 
 from __future__ import annotations
@@ -33,8 +33,9 @@ def _union(intervals):
 
 
 def summarize(prof, window_ns: tuple[int, int], marker: str) -> dict:
-    """Busy and window seconds, launches, top device operations and idle
-    gaps of the session, over ``window_ns`` (the profiler's time base, ns).
+    """Busy and window seconds, launches, device seconds by operation name
+    (``kernels``, every name), top device operations and idle gaps of the
+    session, over ``window_ns`` (the profiler's time base, ns).
     ``marker`` names the annotation that spans the segment: it is no
     device work, and a gap inside it alone finds the host in Python."""
     w0, w1 = window_ns
@@ -80,6 +81,7 @@ def summarize(prof, window_ns: tuple[int, int], marker: str) -> dict:
         "busy_s": busy,
         "window_s": (w1 - w0) / 1e9,
         "launches": launches,
+        "kernels": {n: s for n, (s, _) in kernels.items()},
         "device_ops": [[n[:120], s] for n, (s, _) in ops],
         "idle_gaps": [[n[:120], s] for n, s in sorted(named.items(), key=lambda kv: kv[1], reverse=True)[:TOP]],
     }

@@ -12,7 +12,8 @@ this module finds through ``BENCHMARK.json``:
   limits of the numbers that decide ``correct``;
 * ``portbench/drivers/<driver>.py``: ``setup(ctx) -> Run``, where ``Run``
   has ``unit(spans)``, ``trace_units``, ``counters()``, ``release()`` and
-  ``check() -> {name: value}``;
+  ``check() -> {name: value}``, and ``tiny(cell) -> cell``, the cell cut to
+  the size of a CPU test;
 * ``portbench/metrics/<metric>.py``: ``read(ctx) -> float | None``; a
   metric split by the end-to-end metric it moves (``device_idle.ppo``,
   ``device_idle.search``) may share the reader named by the part before its
@@ -32,6 +33,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -133,12 +135,16 @@ class Spans:
 
 @dataclasses.dataclass
 class Ctx:
-    """What a driver and the metric readers see."""
+    """What a driver and the metric readers see: the driver's ``run`` and the
+    timed ``window``; in a traced run also the benchmark's ``spans``, the
+    driver's ``counters`` and the first profiled segment's summary
+    (``profile``, with the program's counters' change over that segment)."""
 
     cell: Cell
     seed: int
     device: object
     sync: object
+    run: object = None
     window: dict = dataclasses.field(default_factory=dict)
     spans: dict = dataclasses.field(default_factory=dict)
     counters: dict = dataclasses.field(default_factory=dict)
@@ -147,12 +153,15 @@ class Ctx:
 
 def _segment(run, ctx, activities) -> dict:
     """Profile ``run.trace_units`` units; the summary of their events over
-    the segment's host-clock window (the profiler's time base)."""
+    the segment's host-clock window (the profiler's time base), with the
+    program's counters' change over the segment (``utils/profiling.counters``)."""
+    from rein48_tpu_torch.utils import profiling
     from torch.profiler import profile, record_function
 
     from portbench import events
 
     marker = "portbench.segment"
+    before = dict(profiling.counters)
     with profile(activities=activities) as prof:
         t0 = time.time_ns()
         with record_function(marker):
@@ -160,7 +169,9 @@ def _segment(run, ctx, activities) -> dict:
                 run.unit(None)
             ctx.sync()
         t1 = time.time_ns()
-    return events.summarize(prof, (t0, t1), marker)
+    out = events.summarize(prof, (t0, t1), marker)
+    out["counters"] = {k: v - before.get(k, 0) for k, v in profiling.counters.items() if v != before.get(k, 0)}
+    return out
 
 
 def _profile(run, ctx) -> dict:
@@ -196,7 +207,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, start: 
     sync = make_sync(device)
     ctx = Ctx(cell=cell, seed=seed, device=device, sync=sync)
     driver = load_module("drivers", cell.workload["driver"], cell.pkg)
-    run = driver.setup(ctx)
+    ctx.run = run = driver.setup(ctx)
     sync()
     spans = Spans(sync) if trace else None
     lat, units = [], 0
@@ -212,6 +223,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, start: 
         if t1 - t_start >= seconds:
             break
     ctx.window = {"seconds": t1 - t_start, "units": units, "latencies": lat, "setup_s": setup_s}
+    if len(lat) > 1:
+        q = statistics.quantiles(lat, n=4)
+        print(f"portbench: window {units} units in {t1 - t_start:.3f} s; unit ms quartiles "
+              f"{1e3 * q[0]:.3f} {1e3 * q[1]:.3f} {1e3 * q[2]:.3f}, max {1e3 * max(lat):.3f}", file=sys.stderr)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     if trace:
         ctx.spans = spans.times

@@ -14,12 +14,10 @@ inside them, and how far each span's in-memory start and end lie from its
 annotation's.
 
 The metrics that name a span call :func:`record`; the first call measures
-both segments and keeps the result on the run's context, so the later ones
+both segments with the cell's ``Run``, which the harness hands the readers
+on the context (``ctx.run``), and keeps the result there, so the later ones
 read the same segments. A program without the facility (no
 ``profiling.tracing``) gives None, and those metrics stay silent.
-
-The harness hands a metric only the context, and the cell's ``Run`` lives in
-``harness.run_cell``'s frame beside it; :func:`find_run` takes it from there.
 """
 
 from __future__ import annotations
@@ -36,25 +34,11 @@ from portbench.events import LAUNCH_CALLS, _union
 KEY = "program_trace"
 
 
-def find_run(ctx):
-    """The ``Run`` of the frame that holds ``ctx`` (``harness.run_cell``)."""
-    frame = sys._getframe(1)
-    while frame is not None:
-        names = frame.f_locals
-        if names.get("ctx") is ctx and hasattr(names.get("run"), "unit"):
-            return names["run"]
-        frame = frame.f_back
-    return None
-
-
 def record(ctx):
     """Segments A and B of this run, measured at the first call; None where
     the program has no spans."""
     if not hasattr(ctx, KEY):
-        setattr(ctx, KEY, None)
-        run = find_run(ctx)
-        if run is not None:
-            setattr(ctx, KEY, measure(ctx, run))
+        setattr(ctx, KEY, None if ctx.run is None else measure(ctx, ctx.run))
     return getattr(ctx, KEY)
 
 

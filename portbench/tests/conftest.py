@@ -1,5 +1,6 @@
 """Shared helpers of the benchmark's CPU tests: the repository root on the
-path, the card fixture, and cells cut to a size a CPU test can hold."""
+path, the card fixture, the pending cells, and cells cut by their drivers to
+a size a CPU test can hold."""
 
 import sys
 from pathlib import Path
@@ -20,51 +21,50 @@ SEED = 2**31 + 12_345
 
 
 def shrink(cell: harness.Cell) -> harness.Cell:
-    """The cell at a CPU test's size: the same paths, few games and steps,
-    a narrow tower and small tuples."""
-    driver = cell.workload["driver"]
-    if driver == "ppo_update":
-        cell.traffic["ppo"].update(batch_size=8, unroll_len=4, num_minibatches=2)
-        cell.config.update(channels=8, num_blocks=1, head_hidden=8)
-    elif driver == "ntuple_update":
-        cell.traffic.update(batch_size=8, steps_per_update=8)
-        cell.config.update(tuples=[[0, 1, 2], [0, 4, 8]])
-    elif driver == "search_move":
-        cell.traffic.update(games=4)
-        cell.workload.update(warmup_moves=2, traced_moves=2, checked_moves=3)
-        cell.config.update(channels=8, num_blocks=1, head_hidden=8)
-    return cell
+    """The cell at a CPU test's size, as its driver's ``tiny`` cuts it."""
+    return harness.load_module("drivers", cell.workload["driver"], cell.pkg).tiny(cell)
 
 
-# Cells whose files are here but which BENCHMARK.json leaves out, their
-# host-bound rate being too noisy for a bound (PERF.md, section 7):
-# (configuration, traffic, end-to-end and per-layer metrics).
-PENDING = {
-    name: ("ntuple_yeh4x6", traffic, ["setup_s", "ntuple_env_steps_per_s"], ["launches_per_step.ntuple", "device_idle.ntuple"])
-    for name, traffic in (("ntuple_b16384", "ntuple_b16384_t128_delayed4"), ("ntuple_b1024", "ntuple_b1024_t128_delayed4"))
-}
+def pending(root: Path = ROOT, pkg: Path = None) -> dict:
+    """Cells whose workload file is here but which BENCHMARK.json leaves
+    out: each file's ``pending`` block (configuration, traffic, end-to-end
+    and per-layer metric names), by cell name."""
+    pkg = pkg or root / "portbench"
+    listed = {w["name"] for w in harness.load_json(root / "BENCHMARK.json")["workloads"]}
+    files = sorted((pkg / "workloads").glob("*.json"))
+    return {f.stem: harness.load_json(f).get("pending") for f in files if f.stem not in listed}
+
+
+PENDING = pending()
 
 
 def cell(name: str, root: Path = ROOT, pkg: Path = None) -> harness.Cell:
     """A cell of BENCHMARK.json, or a pending one built from its files."""
     pkg = pkg or root / "portbench"
-    if name not in PENDING:
+    block = pending(root, pkg).get(name)
+    if block is None:
         return harness.find_cell(name, root, pkg)
-    config, traffic, e2e, layers = PENDING[name]
 
     def load(*parts):
         return harness.load_json(pkg.joinpath(*parts))
 
     return harness.Cell(
         name=name,
-        entry={"name": name, "config": config, "traffic": traffic, "chips": 1},
+        entry={"name": name, "config": block["config"], "traffic": block["traffic"], "chips": 1},
         workload=load("workloads", f"{name}.json"),
-        config=load("configs", f"{config}.json"),
-        traffic=load("traffic", f"{traffic}.json"),
-        end_to_end=[{"name": m, "unit": "-"} for m in e2e],
-        per_layer=[{"name": m, "unit": "-"} for m in layers],
+        config=load("configs", f"{block['config']}.json"),
+        traffic=load("traffic", f"{block['traffic']}.json"),
+        end_to_end=[{"name": m, "unit": "-"} for m in block["end_to_end"]],
+        per_layer=[{"name": m, "unit": "-"} for m in block["per_layer"]],
         pkg=pkg,
     )
+
+
+def device_only(metric: dict) -> bool:
+    """A metric read from the device's events alone, which stays silent on
+    the CPU: by its ``source``, or by the name of the device's idle share or
+    of the launches."""
+    return metric.get("source") == "device_trace" or metric["name"].startswith(("device_idle", "launches_per_step"))
 
 
 def tiny_cell(name: str, root: Path = ROOT, pkg: Path = None) -> harness.Cell:

@@ -7,13 +7,24 @@ import time
 import pytest
 import torch
 
-from conftest import PENDING, ROOT, SEED, tiny_cell
+from conftest import PENDING, ROOT, SEED, device_only, tiny_cell
 from portbench import harness
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 ALL = CELLS + sorted(PENDING)
+DRIVERS = sorted(p.stem for p in (ROOT / "portbench" / "drivers").glob("*.py") if p.stem != "__init__")
 CPU = torch.device("cpu")
+# Each cell's CPU test size: (traffic, configuration, workload) fields as
+# its driver's ``tiny`` sets them.
+TINY = {
+    "ppo_flagship": ({"ppo": {"batch_size": 8, "unroll_len": 4, "num_minibatches": 2}},
+                     {"channels": 8, "num_blocks": 1, "head_hidden": 8}, {}),
+    "search_depth1": ({"games": 4}, {"channels": 8, "num_blocks": 1, "head_hidden": 8},
+                      {"warmup_moves": 2, "traced_moves": 2, "checked_moves": 3}),
+    "ntuple_b16384": ({"batch_size": 8, "steps_per_update": 8}, {"tuples": [[0, 1, 2], [0, 4, 8]]}, {}),
+    "ntuple_b1024": ({"batch_size": 8, "steps_per_update": 8}, {"tuples": [[0, 1, 2], [0, 4, 8]]}, {}),
+}
 
 
 def test_every_named_file_exists():
@@ -30,12 +41,34 @@ def test_every_named_file_exists():
 
 
 def test_pending_files_exist():
+    """Every workload file that BENCHMARK.json leaves out is a pending cell
+    whose files and metric readers are all here."""
     pkg = ROOT / "portbench"
-    for name, (config, traffic, e2e, layers) in PENDING.items():
+    for name, block in PENDING.items():
+        assert block is not None, f"workloads/{name}.json is neither in BENCHMARK.json nor pending"
         assert name not in CELLS
-        assert (pkg / "configs" / f"{config}.json").is_file() and (pkg / "traffic" / f"{traffic}.json").is_file()
-        for m in e2e + layers:
+        assert (pkg / "configs" / f"{block['config']}.json").is_file()
+        assert (pkg / "traffic" / f"{block['traffic']}.json").is_file()
+        for m in block["end_to_end"] + block["per_layer"]:
             assert harness.load_module("metrics", m).read, m
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_every_driver_has_tiny(driver):
+    assert callable(getattr(harness.load_module("drivers", driver), "tiny", None)), \
+        f"portbench/drivers/{driver}.py has no tiny(cell)"
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_tiny_sizes(name):
+    """The CPU sizes, each field as the cell's driver cuts it."""
+    cell = tiny_cell(name)
+    traffic, config, workload = TINY[name]
+    for key, want in traffic.items():
+        got = cell.traffic[key]
+        assert ({k: got[k] for k in want} if isinstance(want, dict) else got) == want, key
+    assert {k: cell.config[k] for k in config} == config
+    assert {k: cell.workload[k] for k in workload} == workload
 
 
 @pytest.mark.parametrize("name", ALL)
@@ -44,10 +77,9 @@ def test_cell_runs_tiny(name, trace):
     cell = tiny_cell(name)
     out = harness.run_cell(cell, SEED, 0.3, trace, CPU, time.perf_counter())
     assert out["attempted"] >= 1
-    names = {m["name"] for m in (cell.per_layer if trace else cell.end_to_end)}
-    device_only = {n for n in names if n.startswith("device_idle") or n.startswith("launches_per_step")}
+    metrics = cell.per_layer if trace else cell.end_to_end
     # The CPU has no device events: the device-trace metrics stay silent.
-    assert set(out["metrics"]) == names - device_only
+    assert set(out["metrics"]) == {m["name"] for m in metrics if not device_only(m)}
     assert all(v["value"] > 0 for v in out["metrics"].values())
     assert out["checks"]["boards_differ"]["value"] == 0
     assert list(out["checks"]) == list(cell.workload["limits"])

@@ -127,7 +127,7 @@ def test_each_reader_on_a_hand_built_record(metric):
 def test_each_reader_is_silent_without_the_programs_spans(metric, monkeypatch):
     from rein48_tpu_torch.utils import profiling
 
-    class Run:  # found in this frame beside ctx, as in harness.run_cell's
+    class Run:  # handed to the readers on the context, as harness.run_cell does
         trace_units = 1
 
         def unit(self, spans):
@@ -136,14 +136,41 @@ def test_each_reader_is_silent_without_the_programs_spans(metric, monkeypatch):
     monkeypatch.delattr(profiling, "tracing")
     ctx = hand_built("ppo_flagship" if metric.endswith(("ppo", "ppo_rollout")) else "search_depth1")
     del ctx.program_trace
-    run = Run()
-    assert program_trace.find_run(ctx) is run
+    ctx.run = Run()
     assert harness.load_module("metrics", metric).read(ctx) is None
     assert ctx.program_trace is None
 
 
 def test_every_new_metric_has_a_reader_here():
     assert sorted(m["name"] for m in SPAN_METRICS) == sorted(READS)
+
+
+@pytest.mark.parametrize("name", sorted(SPANS))
+def test_readers_get_the_run_and_counters_on_the_context(name, monkeypatch):
+    """The readers measure with the driver's own ``Run``, handed to them on
+    the context; the program's counters over the harness's profiled segment
+    are those of segment A (as many units)."""
+    runs, measured = [], []
+    driver = harness.load_module("drivers", tiny_cell(name).workload["driver"])
+    setup, measure = driver.setup, program_trace.measure
+
+    def keep_setup(ctx):
+        runs.append(setup(ctx))
+        return runs[-1]
+
+    def keep(ctx, run):
+        measured.append((ctx, run, measure(ctx, run)))
+        return measured[-1][2]
+
+    load = harness.load_module
+    monkeypatch.setattr(harness, "load_module", lambda kind, n, pkg=harness.PKG: driver if kind == "drivers" else
+                        load(kind, n, pkg))
+    monkeypatch.setattr(driver, "setup", keep_setup)
+    monkeypatch.setattr(program_trace, "measure", keep)
+    harness.run_cell(tiny_cell(name), SEED, 0.3, True, torch.device("cpu"), time.perf_counter())
+    ((ctx, run, rec),) = measured
+    assert run is runs[0] and ctx.run is run
+    assert ctx.profile["counters"] == rec["counters"]
 
 
 @pytest.mark.parametrize("name", sorted(SPANS))
