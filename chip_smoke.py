@@ -218,8 +218,9 @@ RECIPES = (
 # The frontier sweeps through their main, one leg each at a small budget: the
 # clock is read every 20 updates of YEH_4X6 at B=1024 on "cached"
 # (delayed/4), about 18 s, so that leg trains one check; and after every
-# update at B=16384 (the plain path, as JAX's default backend), about 0.8 s,
-# so that one trains a few. Evaluations capped at RECIPE_EVAL_STEPS.
+# update at B=16384 (the plain path, as JAX's default backend, with the value
+# kernel), about 0.8 s, so that one trains a few. Evaluations capped at
+# RECIPE_EVAL_STEPS.
 FRONTIER_BUDGET_S = 1.0
 FRONTIERS = (
     ("ntuple_frontier", ["cached", "delayed:4"], 20, "cached"),
@@ -232,7 +233,8 @@ FRONTIERS = (
 # JAX run's, and a tile sum above random play's (measured here, on the plain
 # engine, RANDOM_ENVS first episodes). The n-tuple recipe (YEH_4X6, B=1024,
 # T=128, delayed/4, 40 updates; JAX 27,540.1) runs under "auto" (the plain
-# path, as JAX's "xla") and "cached" (the kernels); PPO (40 updates at B=4096; 525.6), the fresh
+# path, as JAX's "xla", its values through the value kernel) and "cached"
+# (the kernels); PPO (40 updates at B=4096; 525.6), the fresh
 # afterstate-TD flagship (50 at B=8192; 571.4) and the A3C flagship (50 at
 # B=8192; 519.5) act through the plain engine and launch no kernel. So do the
 # DQN recipes (300 updates at 4,096 envs x 2 acting steps, the buffer full from
@@ -573,15 +575,17 @@ def table_counts() -> dict:
 
 def check_values(net, plain, params, plain_params, boards) -> dict:
     """``net.value`` (the fused kernel) bit-equal to its plain version, and
-    within ``TABLE_ATOL + TABLE_RTOL * S`` of the ``"torch"`` backend, S the
-    same value on the tables' magnitudes: the card's ``.sum(-1)`` is not a
-    left fold, so the two add the same lookups in another order."""
+    within ``TABLE_ATOL + TABLE_RTOL * S`` of the ``"torch"`` backend's value
+    on the CPU (the plain version on the logical tables), S the same value on
+    the tables' magnitudes. On the card the ``"torch"`` backend's value is
+    the kernel too."""
     from rein48_tpu_torch.ops import ntuple_value as value_ops
 
     got = net.value(params, boards)
     equal = bool(torch.equal(got, value_ops.ntuple_value_reference(net.indices(boards), *net.value_tables(params))))
-    scale = plain.value({k: v.abs() for k, v in plain_params.items() if v.dtype == torch.float32}, boards)
-    ok, err, ratio = close_tables([got], [plain.value(plain_params, boards)], [scale])
+    tables, cpu_boards = {k: v.cpu() for k, v in plain_params.items() if k[1:].isdigit()}, boards.cpu()
+    scale = plain.value({k: v.abs() for k, v in tables.items()}, cpu_boards)
+    ok, err, ratio = close_tables([got.cpu()], [plain.value(tables, cpu_boards)], [scale])
     return {"kernel_equal_plain": equal, "within_tol_of_torch": ok, "max_abs_err": f"{err:.3g}", "err_over_tol": f"{ratio:.3g}"}
 
 
@@ -689,7 +693,9 @@ def table_kernel_phase(state, net, gathers, window):
 
 def ntuple_network_phase(state, net, window):
     """``"mxu"`` against ``"torch"`` on the card: value (the fused kernel
-    bit-equal to its plain version beside it) and the TD updates."""
+    bit-equal to its plain version beside it, and within the scaled
+    tolerance of the ``"torch"`` backend's plain path on the CPU) and the TD
+    updates."""
     from rein48_tpu_torch.train import ntuple as nt
 
     plain = nt.get_network(dataclasses.replace(net.config, backend="torch"))
@@ -838,9 +844,9 @@ def ntuple_depth1_phase(trained, dev):
         stats = run(NT_D1_STEPS)
         walls.append(time.perf_counter() - t0)
     launched = table_counts()
-    # Per step: 8 chance chunks, each of envs x 64 leaf boards that make_leaf
-    # cuts into chunks of 4,096, one fused value call each (32 at 256 envs).
-    per_step = 8 * -(-NT_D1_ENVS * 64 // 4096)
+    # Per step: 8 chance chunks, each one leaf call of envs x 64 boards and
+    # one launch of the value kernel over the whole leaf batch.
+    per_step = 8
     if launched != {**{k: 0 for k in launched}, "ntuple_value": per_step * 2 * NT_D1_STEPS}:
         raise AssertionError(f"depth-1 evaluate_ntuple launched {launched}")
     if not all(np.isfinite(v) for v in stats.values()) or stats["episodes"] != NT_D1_ENVS:
@@ -859,10 +865,11 @@ def ntuple_depth1_phase(trained, dev):
 
 
 def leaf_chunk(state):
-    """A leaf chunk of depth-1 n-tuple evaluation: the second chunk of 4,096
-    boards that ``make_leaf`` cuts from one chance chunk's leaves (a slice,
-    stored transposed as the engine's afterstates are), recorded from a
-    depth-1 step over the first ``NT_D1_ENVS`` boards of ``state``."""
+    """A leaf chunk of depth-1 n-tuple evaluation: the second slice of 4,096
+    boards (the JAX package's ``lax.map`` chunk) of one chance chunk's
+    leaves, stored transposed as the engine's afterstates are, recorded
+    from a depth-1 step over the first ``NT_D1_ENVS`` boards of
+    ``state``."""
     from rein48_tpu_torch.control import search
 
     seen = []
@@ -875,6 +882,36 @@ def leaf_chunk(state):
         search.make_expectimax_policy(1, leaf_value=leaf, reward_fn=lambda r: r, gamma=1.0, death_value=0.0,
                                       chance_chunk=4)(state.env.boards[:NT_D1_ENVS])
     return seen[0].reshape((-1,) + seen[0].shape[-2:]).split(4096)[1]
+
+
+def depth2_leaf_case(dev):
+    """The value kernel's shape on ``eval --algo ntuple --depth 2
+    --chance-chunk 8`` (the ``search_ntuple_d2`` cell): a YEH_4X6 network
+    on the ``"torch"`` backend (``"auto"`` at these tables, no row map; 4 x
+    16^6 float32 entries, 268 MB, drawn normal of standard deviation 1)
+    and the first leaf call's 1,048,576 transposed afterstates, recorded
+    from a depth-2 move of 256 games 30 random moves past the start."""
+    from rein48_tpu_torch.control import search
+    from rein48_tpu_torch.engine import vector
+    from rein48_tpu_torch.train import ntuple as nt
+
+    config = nt.NTupleTrainConfig().network_config(dev)
+    net = nt.get_network(config)
+    g = torch.Generator(device=dev).manual_seed(20)
+    params = {f"t{i}": torch.randn(n, generator=g, device=dev) for i, n in enumerate(net.table_sizes)}
+    env = vector.reset_batch(20, 256, dev)
+    seen = []
+
+    def leaf(boards):
+        seen.append(boards)
+        return torch.zeros(boards.shape[:-2], device=boards.device)
+
+    with torch.no_grad():
+        for _ in range(30):
+            _, _, legal = search._afterstates(env.boards)
+            env, _ = vector.step_autoreset(env, torch.multinomial(legal.float() + 1e-9, 1, generator=g)[:, 0])
+        search._action_values(env.boards, 2, leaf, lambda r: r, 1.0, 0.0, 8)
+    return (f"YEH_4X6 {config.backend} depth-2 leaf", net, params, seen[0])
 
 
 def value_kernel_phase(cases) -> dict:
@@ -939,11 +976,15 @@ def value_path(path: str):
     """``NTupleNetwork.value`` of ``"mxu"`` and ``"cached"`` taken through
     another path for the length of the block: ``"composed"``, the
     composition the fused kernel replaced (``gather_value``), or ``"plain"``,
-    the kernel's plain version on the network's own indices."""
+    the kernel's plain version on the network's own indices. The cached
+    players are dropped on the way in and out: a player's CUDA graph
+    replays the value it captured, whatever is patched since."""
     from rein48_tpu_torch.agents import ntuple
     from rein48_tpu_torch.ops import ntuple_value as value_ops
+    from rein48_tpu_torch.train import ntuple as nt
 
     fused = ntuple.NTupleNetwork.value
+    nt._get_ntuple_policy.cache_clear()
 
     def value(self, params, boards):
         if self.config.backend == "torch":
@@ -957,6 +998,7 @@ def value_path(path: str):
         yield
     finally:
         ntuple.NTupleNetwork.value = fused
+        nt._get_ntuple_policy.cache_clear()
 
 
 def kernel_profile(fn, reps: int = 1) -> dict:
@@ -1015,7 +1057,9 @@ def value_launches_phase(sj_trained, dev):
         box[0] = step(box[0])[0]
 
     measure("SJ_2X4 step update", update, reps=1)
-    policy = nt._get_ntuple_policy(nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4).network_config(dev), 1, 4)
+    # Launched op by op, as the value path patched under it is (a graph
+    # replays the value it captured).
+    policy = nt._get_ntuple_policy(nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4).network_config(dev), 1, 4).eager
     st = vector.reset_batch(SEED + 5, NT_D1_ENVS, dev)
 
     @torch.no_grad()
@@ -1144,9 +1188,10 @@ def hbm_kernel_phase(state, net, idx, window):
 
 def cached_network_phase(state, net, window):
     """``"cached"`` against ``"torch"`` on the card, the torch backend reading
-    the same tables unpermuted: value within the scaled tolerance (the fused
-    kernel bit-equal to its plain version beside it), and the delayed TC
-    update within the scaled tolerance on both branches."""
+    the same tables unpermuted: value within the scaled tolerance of the
+    torch backend's plain path on the CPU (the fused kernel bit-equal to its
+    plain version beside it), and the delayed TC update within the scaled
+    tolerance on both branches."""
     from rein48_tpu_torch.ops import hbm_tables
     from rein48_tpu_torch.train import ntuple as nt
 
@@ -1271,7 +1316,9 @@ def cached_eval_phase(trained, dev):
 
 def ntuple_cli_phase(dev):
     """``train --algo ntuple`` at the CLI's defaults: the YEH_4X6 flagship
-    (4 tables of 16.7M entries with TC accumulators) on the plain path."""
+    (4 tables of 16.7M entries with TC accumulators) on the plain path, its
+    values through the value kernel: two launches an acting step, no table
+    kernel."""
     from rein48_tpu_torch import cli
 
     argv = ["train", "--algo", "ntuple", "--updates", "3", "--batch-size", "1024", "--unroll", "64", "--log-every", "1"]
@@ -1287,8 +1334,9 @@ def ntuple_cli_phase(dev):
     log("ntuple/cli", argv=" ".join(argv), rc=rc, table_launches=json.dumps(kernel_launches),
         env_steps_per_s_after_first=[round(1024 * 64 / dt, 1) for dt in per_update if dt > 0],
         final=json.dumps(final), peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3))
-    if rc != 0 or final["update"] != 3 or not np.isfinite(final["td_abs_err"]) or any(kernel_launches.values()):
-        raise AssertionError(f"train --algo ntuple failed: {final}")
+    launched = {k: v for k, v in kernel_launches.items() if v}
+    if rc != 0 or final["update"] != 3 or not np.isfinite(final["td_abs_err"]) or launched != {"ntuple_value": 2 * 3 * 64}:
+        raise AssertionError(f"train --algo ntuple failed: {final}, launched {launched}")
 
 
 def run_cli_output(argv) -> tuple[str, str]:
@@ -2867,6 +2915,12 @@ def recipes_phase(dev) -> None:
             want = _recipe.jax_keys(module, root)
             row = dict(argv=" ".join(argv), wall_s=round(wall, 2), peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3),
                        launches=json.dumps({k: v for k, v in kernel_launches().items() if v}))
+            if name == "eval_ntuple_depth2":
+                # Two probes of launch_chunk steps, one policy call a step: one
+                # value launch a leaf call, 16 a depth-2 move at chance_chunk 8.
+                moves = 2 * int(argv[-1])
+                row.update(leaf_launches=counter(TABLE_COUNTERS["ntuple_value"]),
+                           leaf_launches_per_move=counter(TABLE_COUNTERS["ntuple_value"]) / moves)
             for path in (p for p in want if p.endswith(".csv")):
                 with open(path) as f:
                     last = list(csv.DictReader(f))[-1]
@@ -2927,8 +2981,9 @@ def frontier_phase(dev) -> None:
                 or not all(np.isfinite(v) for v in leg["eval"].values()):
             raise AssertionError(f"{name} trained {leg['updates']} updates in {leg['train_sec']} s (a check every "
                                  f"{check_every}) or scored {leg['eval']}")
-        # The warm-up update is trained too.
-        kernels = {"ntuple_value", "cached_scatter"} if backend == "cached" else set()
+        # The warm-up update is trained too. Every backend's values take the
+        # value kernel on the card.
+        kernels = {"ntuple_value", "cached_scatter"} if backend == "cached" else {"ntuple_value"}
         if {k for k, v in launches.items() if v} != kernels or any(launches[k] < leg["updates"] + 1 for k in kernels):
             raise AssertionError(f"{name} on {backend!r} launched {launches} in {leg['updates'] + 1} updates")
         torch.cuda.empty_cache()
@@ -3016,11 +3071,13 @@ def capability_phase(dev, name: str, random_tile_sum: float | None = None, backe
         ):
             raise AssertionError(f"{run}: buffer of {first['replay_size']:.0f} slots at update {checks[0]}, restored {saved}")
         # Under "cached" the learning run launches both kernels on every update
-        # (the closing evaluations may add launches of their own); every other
-        # run launches none.
-        kernels = {"ntuple_value", "cached_scatter"} if backend == "cached" else set()
+        # (the closing evaluations may add launches of their own); under
+        # "auto" ("torch" at YEH_4X6) the value kernel alone, whose launches
+        # take every backend's values on the card; a run of another family
+        # launches none.
+        kernels = {"cached": {"ntuple_value", "cached_scatter"}, "auto": {"ntuple_value"}}.get(backend, set())
         launched = {k for k, v in launches.items() if v}
-        if backend is not None and row["resolved"] != ("cached" if kernels else "torch"):
+        if backend is not None and row["resolved"] != ("cached" if backend == "cached" else "torch"):
             raise AssertionError(f"the {backend!r} run resolved to {row['resolved']}")
         if launched != kernels or any(launches[k] < updates for k in kernels):
             raise AssertionError(f"{run} launched {launches} in {updates} updates")
@@ -3263,6 +3320,8 @@ def main() -> int:
         hp_launches[k] += v
     del trained
     lap("YEH_4X6 cached kernels, value kernel, trainer, depth-0")
+    values.update(value_kernel_phase([depth2_leaf_case(dev)]))
+    lap("YEH_4X6 value kernel at the depth-2 leaf")
     ntuple_cli_phase(dev)
     lap("CLI ntuple")
     nt_launches = {k: table_launches[k] + hp_launches[k] for k in table_launches}
@@ -3334,8 +3393,8 @@ def main() -> int:
     # 43-44. The recipes of examples/ through their main at full widths (each
     # logs the kernel launches it made) and the frontier sweeps one leg each,
     # then the n-tuple recipe's learning against the JAX run's curve: YEH_4X6
-    # "auto" is the plain path, the "cached" run launches the value and
-    # hot-prefix kernels.
+    # "auto" is the plain path with the value kernel, the "cached" run
+    # launches the value and hot-prefix kernels.
     recipes_phase(dev)
     frontier_phase(dev)
     lap("recipes of examples/, the frontier sweeps")
@@ -3439,7 +3498,8 @@ def main() -> int:
             "library_ms": None,
         },
     ]
-    sj, leaf, yeh = (values[k] for k in ("SJ_2X4 value(afterstates)", "SJ_2X4 depth-1 leaf chunk", "YEH_4X6 cached value(afterstates)"))
+    sj, leaf, yeh, deep = (values[k] for k in ("SJ_2X4 value(afterstates)", "SJ_2X4 depth-1 leaf chunk",
+                                               "YEH_4X6 cached value(afterstates)", "YEH_4X6 torch depth-2 leaf"))
     kernels.append({
         "name": "ntuple_value",
         "route": "cuda",
@@ -3454,11 +3514,17 @@ def main() -> int:
         "ms": sj["ms"],
         "ms_leaf_chunk": leaf["ms"],
         "ms_cached": yeh["ms"],
+        # One leaf call of the depth-2 player at YEH_4X6: 1,048,576 boards
+        # over 268 MB of tables, 16 such calls a move.
+        "n_depth2_leaf": deep["n"],
+        "ms_depth2_leaf": deep["ms"],
         "plain_ms": sj["plain_ms"],
         "plain_ms_cached": yeh["plain_ms"],
+        "plain_ms_depth2_leaf": deep["plain_ms"],
         "bound_ms": round(sj["bound_ms"], 6),
         "bound_ms_leaf_chunk": round(leaf["bound_ms"], 6),
         "bound_ms_cached": round(yeh["bound_ms"], 6),
+        "bound_ms_depth2_leaf": round(deep["bound_ms"], 6),
         "bound_by": "bytes",
         "library_ms": None,
         "library_note": "no PyTorch call computes boards -> summed lookups",

@@ -24,11 +24,11 @@ Tables are a plain dict of tensors with the JAX key names
   other table op but the value runs the plain path on physical ids: the
   same per-entry math on a relabelled domain.
 
-``value`` of ``"mxu"`` and ``"cached"`` is one launch per call on the card of
-the fused kernel of ``ops/ntuple_value.py``: the indices, the exact lookups
-(through the row maps for ``"cached"``) and both sums, in the order the JAX
-package sums. The standalone gather ops stay; only ``gather_value``, the
-composition that the kernel replaced, kept to compare against, calls them.
+``value`` is one launch per call on the card of the fused kernel of
+``ops/ntuple_value.py``, whatever the backend: the indices, the exact
+lookups (through the row maps for ``"cached"``) and both sums, in the order
+the JAX package sums; the CPU runs its plain version. The standalone gather ops stay; only ``gather_value``, the composition that
+the kernel replaced, kept to compare against, calls them.
 
 Unlike the JAX functions, which return new arrays, the update functions
 here add into the tables in place (they are the trainer's state and the
@@ -165,7 +165,7 @@ class NTupleNetwork:
             )
         self._mxu = config.backend == "mxu"
         self._cached = config.backend == "cached"
-        self._layout = value_ops.Layout(self._cells, self.indices) if self._mxu or self._cached else None
+        self._layout = value_ops.Layout(self._cells, self.indices)
         self._consts: Dict[torch.device, list] = {}
 
     def _lookup_consts(self, device: torch.device):
@@ -230,17 +230,12 @@ class NTupleNetwork:
         """V(board) = sum of all table lookups, ``float32[...]``.
 
         Summed over each table's lookups first, then over the tables, as
-        the JAX package sums. ``"mxu"`` and ``"cached"`` take the fused
-        kernel (:func:`value_ops.ntuple_value`), which reads each board in
-        place when it lies in 16 consecutive bytes (the engine's
-        afterstates are stored transposed) and otherwise from a copy.
+        the JAX package sums. Every backend takes the fused kernel
+        (:func:`value_ops.ntuple_value`) on the card and its plain version
+        on the CPU; the kernel reads each board in place when it lies in 16
+        consecutive bytes (the engine's afterstates are stored transposed)
+        and otherwise from a copy.
         """
-        if self._layout is None:
-            total = None
-            for i, idx in enumerate(self.indices(boards)):
-                v = params[f"t{i}"][idx].sum(-1)
-                total = v if total is None else total + v
-            return total
         if value_ops.board_layout(boards) is None:
             boards = boards.contiguous()
         if self._cached:
@@ -521,15 +516,17 @@ class NTupleNetwork:
         """Expectimax leaf evaluator (``control/search.py``).
 
         N-tuple values are afterstate values, the planner's leaf domain.
-        The leaf batch is cut into chunks of ``max_batch`` boards (the JAX
-        package's ``lax.map``), which bounds each gather at
-        ``num_lookups * max_batch`` indices; the values are the same.
+        On the CPU the leaf batch is cut into chunks of ``max_batch`` boards
+        (the JAX package's ``lax.map``), which bounds each gather at
+        ``num_lookups * max_batch`` indices; the values are the same. On the
+        card a leaf call is one launch of the value kernel over the whole
+        batch, which holds no indices.
         """
 
         def leaf(boards: torch.Tensor) -> torch.Tensor:
             lead = boards.shape[:-2]
             flat = boards.reshape((-1,) + boards.shape[-2:])
-            if flat.shape[0] <= max_batch:
+            if flat.shape[0] <= max_batch or flat.is_cuda:
                 return self.value(params, flat).reshape(lead)
             vals = [self.value(params, chunk) for chunk in flat.split(max_batch)]
             return torch.cat(vals).reshape(lead)

@@ -10,6 +10,11 @@ afterstates to ``[N, 4, 32]`` chance children, and the leaves of the whole
 batch go through the leaf evaluator as one batch (``B * 4 * 32 * 4`` boards
 at depth 1). ``chance_chunk`` evaluates the 32 chance children a group at
 a time, which bounds the leaf batch; the sum is the same.
+
+Every call of the leaf evaluator, whatever it is (a value net, an n-tuple
+network, the heuristic), is one ``search.leaf`` span and counts the boards
+it is fed in ``search.leaf_boards`` (``utils/profiling``), in
+:func:`_leaf_values` alone, so that no leaf counts twice.
 """
 
 from __future__ import annotations
@@ -74,15 +79,17 @@ def _chance_children(after: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     Returns ``(children[..., 32, 4, 4], probs[..., 32])``, ordered cell 0
     tile 2, ..., cell 15 tile 2, cell 0 tile 4, ...; a non-blank cell's
-    child is garbage with probability 0.
+    child, of probability 0, is the afterstate itself. Spawning on a taken
+    cell would raise its tile, up to exponent 17 from a 2^15 tile, past
+    the 16 values a cell of an n-tuple table holds.
     """
     blanks = (after == 0).reshape(after.shape[:-2] + (NUM_CELLS,))
     n_blanks = blanks.sum(-1, keepdim=True).to(torch.float32)
     p_cell = blanks.to(torch.float32) / torch.clamp(n_blanks, min=1.0)
     probs = torch.cat([p_cell * (1.0 - SPAWN_P4), p_cell * SPAWN_P4], dim=-1)
     eye = torch.eye(NUM_CELLS, dtype=after.dtype, device=after.device).reshape(NUM_CELLS, 4, 4)
-    base = after[..., None, :, :]
-    children = torch.cat([base + eye, base + 2 * eye], dim=-3)
+    spawns = torch.cat([eye, 2 * eye])
+    children = after[..., None, :, :] + spawns * (probs > 0)[..., None, None]
     return children, probs
 
 
@@ -102,6 +109,13 @@ def _value_max(boards, depth, leaf_value, reward_fn, gamma, death_value, chance_
     return torch.where(dead, death_value, best)
 
 
+def _leaf_values(leaf_value, after: torch.Tensor) -> torch.Tensor:
+    """``leaf_value(after)`` as one ``search.leaf`` span, its boards counted."""
+    with profiling.span("search.leaf"):
+        profiling.count("search.leaf_boards", after.numel() // NUM_CELLS)
+        return leaf_value(after)
+
+
 def _value_chance(after, depth, leaf_value, reward_fn, gamma, death_value, chance_chunk=None):
     """Expected value of chance nodes (afterstates) ``[...]``.
 
@@ -109,7 +123,7 @@ def _value_chance(after, depth, leaf_value, reward_fn, gamma, death_value, chanc
     time and sums the partial expectations, chunk by chunk.
     """
     if depth <= 0:
-        return leaf_value(after)
+        return _leaf_values(leaf_value, after)
     children, probs = _chance_children(after)
     if chance_chunk is None or chance_chunk >= CHANCE_BRANCH:
         child_values = _value_max(children, depth - 1, leaf_value, reward_fn, gamma, death_value, chance_chunk)
@@ -184,16 +198,14 @@ def make_value_leaf(model, obs_encoding: str = "onehot"):
 
     Accepts the search's ``[..., 4, 4]`` board tensors of any leading rank:
     they are flattened to one batch for the network (``B * 4 * 32 * 4``
-    boards at depth 1) and the values reshaped back. Each call is one
-    ``search.leaf`` span and counts its boards in ``search.leaf_boards``.
+    boards at depth 1) and the values reshaped back. The tree spans and
+    counts each call (:func:`_leaf_values`).
     """
 
     def leaf_value(boards: torch.Tensor) -> torch.Tensor:
-        with profiling.span("search.leaf"):
-            lead = boards.shape[:-2]
-            flat = boards.reshape((-1,) + boards.shape[-2:])
-            profiling.count("search.leaf_boards", flat.shape[0])
-            _, value = model(common.encode_obs(flat, obs_encoding))
-            return value.reshape(lead)
+        lead = boards.shape[:-2]
+        flat = boards.reshape((-1,) + boards.shape[-2:])
+        _, value = model(common.encode_obs(flat, obs_encoding))
+        return value.reshape(lead)
 
     return leaf_value

@@ -6,7 +6,11 @@
     python -m rein48_tpu_torch.examples.eval_ntuple_depth2 probe [num_envs] [num_steps] [chance_chunk] [launch_chunk]
     python -m rein48_tpu_torch.examples.eval_ntuple_depth2 run [num_envs] [num_steps] [chance_chunk] [launch_chunk]
 
-Depth 2 expands 16,384 leaves per board per move (``control/search.py``).
+Depth 2 feeds the leaf 65,536 afterstates per board per move
+(``control/search.py``: 4 moves x 32 spawns x 4 moves x 32 spawns x 4
+moves); 16,384 is the number of its depth-0 max nodes, whose afterstates
+those are. On the card a leaf call is one launch of the value kernel, 16 a
+move at ``chance_chunk`` 8.
 ``probe`` plays ``launch_chunk`` steps twice (the first pays the warm-up)
 and projects the full run's time; ``run`` plays the first-episode row and
 writes ``runs/ntuple_cuda/eval_depth2.json``.

@@ -8,7 +8,8 @@ In the JAX package ``NTupleNetwork.value`` of the ``"mxu"`` and
 Run eagerly, the same composition is about 12 launches per call at
 ``SJ_2X4`` and 24 at ``YEH_4X6``. On the card :func:`ntuple_value` is one
 launch of the kernel of ``csrc/ntuple_value.cu`` per call (see the note at
-the top of that file); a CPU tensor runs the plain version,
+the top of that file), and ``NTupleNetwork.value`` takes it for every
+backend, ``"torch"`` included; a CPU tensor runs the plain version,
 :func:`ntuple_value_reference`; any other device raises. The counter
 ``ntuple_value.launches`` (``utils/profiling.counters``) counts kernel
 launches, never those of the plain version.

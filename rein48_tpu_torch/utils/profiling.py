@@ -175,6 +175,11 @@ _trace: Optional[Trace] = None
 _OFF = contextlib.nullcontext()
 
 
+def on() -> bool:
+    """Whether spans are on: a :func:`tracing` block is open."""
+    return _trace is not None
+
+
 def span(name: str):
     """A span named after the port's module and step (``"engine.step"``).
     Off (the default) it is one shared context that does nothing."""

@@ -251,14 +251,18 @@ def test_ntuple_mxu_backend_matches_torch_backend(cuda):
 
 def assert_values_match(net, plain, params, plain_params, boards):
     """``net.value`` (the fused kernel) bit-equal to its plain version, and
-    within the scaled tolerance of the ``"torch"`` backend, whose
-    ``.sum(-1)`` on the card is not a left fold: the sums' terms are the
-    same lookups, added in another order. The scale is the same value on
-    the tables' magnitudes."""
+    within the scaled tolerance of the ``"torch"`` backend's value on the
+    CPU, which is that plain version run there on the logical tables. The
+    scale is the same value on the tables' magnitudes. On the card the
+    ``"torch"`` backend takes the kernel too, bit-equal to its plain
+    version."""
     got = net.value(params, boards)
     assert torch.equal(got, value_ops.ntuple_value_reference(net.indices(boards), *net.value_tables(params)))
-    scale = plain.value({k: v.abs() for k, v in plain_params.items()}, boards)
-    assert_sums_close(got, plain.value(plain_params, boards), scale)
+    cpu, cpu_boards = {k: v.cpu() for k, v in plain_params.items()}, boards.cpu()
+    scale = plain.value({k: v.abs() for k, v in cpu.items()}, cpu_boards)
+    assert_sums_close(got.cpu(), plain.value(cpu, cpu_boards), scale)
+    on_card = plain.value(plain_params, boards)
+    assert torch.equal(on_card, value_ops.ntuple_value_reference(plain.indices(boards), *plain.value_tables(plain_params)))
 
 
 def hot_prefix_inputs(n: int, size: int, k: int, device, seed: int = 0):
@@ -507,6 +511,133 @@ def test_ntuple_value_kernel_rejects_bad_inputs(cuda):
     with pytest.raises(ValueError, match="1 to 8 tables"):
         value_ops.pack_group([net._cells[0][:1]] * 9)
     assert count("ntuple_value.launches") == before
+
+
+def test_ntuple_depth2_leaf_is_one_launch_bit_equal_at_yeh4x6(cuda):
+    """The depth-2 player of ``eval --algo ntuple --depth 2 --chance-chunk 8``
+    at YEH_4X6 ("auto" resolves to "torch" for tables this size) on 256
+    games: each leaf call is one launch of the value kernel over 1,048,576
+    boards, 16 a move, and its values are bit-equal to the kernel's plain
+    version on the same boards (the depth-2 tree's afterstates, stored
+    transposed)."""
+    from rein48_tpu_torch.control import search
+    from rein48_tpu_torch.train import ntuple as nt
+
+    config = nt.NTupleTrainConfig().network_config(cuda)
+    assert config.backend == "torch" and config.tuples == ntuple.YEH_4X6
+    net = nt.get_network(config)
+    g = torch.Generator(device=cuda).manual_seed(20)
+    params = {f"t{i}": torch.randn(n, generator=g, device=cuda) for i, n in enumerate(net.table_sizes)}
+    env = vector.reset_batch(20, 256, cuda)
+    for _ in range(30):  # past the opening: boards with a few tiles
+        _, _, legal = search._afterstates(env.boards)
+        env, _ = vector.step_autoreset(env, torch.multinomial(legal.float() + 1e-9, 1, generator=g)[:, 0])
+    inner, calls = net.make_leaf(params), []
+
+    def leaf(boards):
+        before = count("ntuple_value.launches")
+        out = inner(boards)
+        calls.append((count("ntuple_value.launches") - before, boards, out))
+        return out
+
+    names = ("ntuple_value.launches", "search.leaf_boards", "tables.table_gather", "hbm_tables.cached_gather")
+    before = {k: count(k) for k in names}
+    with torch.no_grad():
+        q, legal = search._action_values(env.boards, 2, leaf, lambda r: r, 1.0, 0.0, 8)
+    assert {k: count(k) - before[k] for k in names} == {
+        "ntuple_value.launches": 16, "search.leaf_boards": 256 * 65_536, "tables.table_gather": 0,
+        "hbm_tables.cached_gather": 0,
+    }
+    assert [c[0] for c in calls] == [1] * 16
+    launches, boards, got = calls[0]
+    assert boards.numel() // 16 == 1_048_576 and value_ops.board_layout(boards) is True
+    want = value_ops.ntuple_value_reference(net.indices(boards), *net.value_tables(params))
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(q[legal]).all())
+    actions = nt._get_ntuple_policy(config, 2, 8)(params, env.boards)
+    assert torch.equal(actions, search._argmax_legal(q, legal))
+
+
+def test_ntuple_player_replays_a_graph_of_its_eager_move(cuda):
+    """The depth-2 player on the card: the first call with a key runs
+    eagerly, the second captures a CUDA graph and every later one replays
+    it. Each move's actions equal the eager call's on the same boards, and
+    each call counts what an eager call counts (16 value launches, 65,536
+    leaf boards a board); a table changed in place is read anew by the
+    replay, and new tables (a new key) run eagerly first."""
+    from rein48_tpu_torch.control import search
+    from rein48_tpu_torch.train import ntuple as nt
+
+    config = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4).network_config(cuda)
+    policy = nt._get_ntuple_policy.__wrapped__(config, 2, 8)
+    net = nt.get_network(config)
+    g = torch.Generator(device=cuda).manual_seed(21)
+    params = {f"t{i}": torch.randn(n, generator=g, device=cuda) for i, n in enumerate(net.table_sizes)}
+    env = vector.reset_batch(21, 32, cuda)
+    names = ("ntuple_value.launches", "search.leaf_boards")
+    with torch.no_grad():
+        for move in range(8):
+            if move == 5:
+                params["t0"].add_(torch.randn(params["t0"].shape, generator=g, device=cuda))
+            before = {k: count(k) for k in names}
+            actions = policy(params, env.boards)
+            counted = {k: count(k) - before[k] for k in names}
+            assert counted == {"ntuple_value.launches": 16, "search.leaf_boards": 32 * 65_536}, (move, counted)
+            assert (policy._graph is not None) == (move >= 1)
+            assert torch.equal(actions, policy.eager(params, env.boards)), move
+            env, _ = vector.step_autoreset(env, actions)
+        held = policy._graph
+        fresh = {k: v.clone() for k, v in params.items()}
+        assert torch.equal(policy(fresh, env.boards), policy.eager(fresh, env.boards))
+        assert policy._graph is held  # eager at a new key's first call
+        with profiling.tracing() as trace:
+            policy(params, env.boards)
+        assert len([s for s in trace.spans if s.name == "search.leaf"]) == 16  # spans on: eager
+    q, legal = search._action_values(env.boards, 2, net.make_leaf(params), lambda r: r, 1.0, 0.0, 8)
+    assert bool(torch.isfinite(q[legal]).all())
+
+
+def test_ntuple_depth2_boards_with_2_15_tiles_stay_in_the_tables(cuda):
+    """Boards with a 2^15 tile through the depth-2 player of ``eval --algo
+    ntuple --depth 2 --chance-chunk 8`` at YEH_4X6: the tree spawns only on
+    blank cells, so every lookup of the value kernel stays inside its
+    table. Q is finite and within the CPU tests' tolerance of the plain
+    reference (``portbench/reference/search_ntuple.py``), and the player
+    picks the reference's best move wherever it is clear."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from portbench.reference import ntuple as ref_ntuple
+    from portbench.reference import search_ntuple as ref
+    from rein48_tpu_torch.control import search
+    from rein48_tpu_torch.train import ntuple as nt
+
+    q_tol = 2e-6  # tests/test_torch_ntuple_search.py's Q_TOL
+    big_tiles = [
+        [[15, 14, 3, 1], [2, 5, 0, 0], [1, 0, 0, 2], [0, 0, 1, 0]],
+        [[14, 14, 2, 0], [3, 0, 0, 1], [0, 1, 0, 0], [0, 0, 0, 2]],
+    ]
+    config = nt.NTupleTrainConfig().network_config(cuda)
+    assert config.backend == "torch" and config.tuples == ntuple.YEH_4X6
+    net = nt.get_network(config)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    params = {f"t{i}": torch.randn(n, generator=g, device=cuda) for i, n in enumerate(net.table_sizes)}
+    boards = torch.tensor(big_tiles, dtype=torch.uint8, device=cuda)
+    before = count("ntuple_value.launches")
+    with torch.no_grad():
+        q, legal = search._action_values(boards, 2, net.make_leaf(params), lambda r: r, 1.0, 0.0, 8)
+        actions = nt._get_ntuple_policy(config, 2, 8)(params, boards)
+    torch.cuda.synchronize()
+    assert count("ntuple_value.launches") - before == 32
+    want = ref.action_values(ref_ntuple.Network(config.tuples, cuda),
+                             [params[f"t{i}"] for i in range(len(config.tuples))], boards, 2, block=1)
+    assert torch.equal(legal, torch.isfinite(want)) and bool(torch.isfinite(q[legal]).all())
+    err = torch.where(legal, (q - want).abs() / want.abs().clamp(min=1.0), 0.0)
+    assert float(err.max()) <= q_tol, float(err.max())
+    top = want.sort(-1).values
+    clear = (top[:, -1] - top[:, -2] > q_tol * top[:, -1].abs().clamp(min=1.0)) | ~torch.isfinite(top[:, -2])
+    assert torch.equal(actions[clear], want.argmax(-1)[clear])
 
 
 # The fused layer norm and ReLU (ops/layer_norm.py) against its plain version
