@@ -15,10 +15,17 @@ Every call of the leaf evaluator, whatever it is (a value net, an n-tuple
 network, the heuristic), is one ``search.leaf`` span and counts the boards
 it is fed in ``search.leaf_boards`` (``utils/profiling``), in
 :func:`_leaf_values` alone, so that no leaf counts twice.
+
+On the card a move is thousands of small launches, so eagerly the host
+sets the pace; :class:`Replayed` hands the card the whole move as one CUDA
+graph replay. Both learned players use it: the value-net player
+(``train/evaluate._build_search_policy``) and the n-tuple player
+(``train/ntuple._get_ntuple_policy``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Tuple
 
 import numpy as np
@@ -209,3 +216,96 @@ def make_value_leaf(model, obs_encoding: str = "onehot"):
         return value.reshape(lead)
 
     return leaf_value
+
+
+def _state_key(held) -> tuple:
+    """Name, address, shape and type of every tensor of ``held`` that a
+    graph reads in place: a dict's tensors by key, a module's parameters
+    and buffers by name."""
+    out = []
+    for obj in held:
+        named = obj.items() if isinstance(obj, dict) else itertools.chain(obj.named_parameters(), obj.named_buffers())
+        out.append(tuple((k, v.data_ptr(), tuple(v.shape), v.dtype) for k, v in sorted(named)))
+    return tuple(out)
+
+
+class Replayed:
+    """``policy(*state, boards) -> actions`` that replays a CUDA graph of
+    ``eager``, called with the same arguments.
+
+    ``state`` are the arguments read in place, such as the n-tuple
+    player's dict of tables; ``closes_over`` the modules or dicts that
+    ``eager`` reads without being passed them, such as the value net of
+    :func:`make_value_leaf`. On the card, the first call with a key (the
+    boards' shape, type and device, the grad and inference modes, and the
+    name, address, shape and type of every tensor of ``state`` and
+    ``closes_over``, :meth:`key`) runs eagerly; the next call with the same
+    key captures the graph and every later one replays it, on the tensors
+    at those addresses as they stand. So tensors updated in place between
+    calls (``load_state_dict``, an optimizer step, a table update) are
+    read anew, and a replaced tensor is a new key: that call runs eagerly
+    and the next one captures anew. The boards are copied in and the
+    actions cloned out. A replay runs the kernels its capture launched, on
+    the same inputs as the eager move; cuDNN may pick other convolution
+    algorithms under capture, which can break a float tie of the value
+    net's q the other way.
+
+    A replay adds to the counters (``utils/profiling``) what its capture
+    counted, so ``search.leaf_boards`` and each kernel's launches read as
+    they do eagerly. While spans are on (``profiling.tracing()``) every
+    call runs eagerly, since a span times its work on the device's clock
+    between events that a replay does not record. On the card each call
+    counts one of ``replay.eager``, ``replay.captures`` and
+    ``replay.replays``; on the CPU every call runs eagerly and counts
+    none. A graph replays the kernels it captured: code patched in after
+    the capture does not reach it.
+    """
+
+    def __init__(self, eager, closes_over=()):
+        self.eager = eager
+        self.closes_over = tuple(closes_over)
+        self._seen = None
+        self._graph = None  # (key, graph, boards_in, actions_out, counts)
+
+    def key(self, *args) -> tuple:
+        """What a graph of a call with ``args`` holds fixed."""
+        *state, boards = args
+        return (tuple(boards.shape), boards.dtype, boards.device, torch.is_grad_enabled(),
+                torch.is_inference_mode_enabled(), _state_key(tuple(state) + self.closes_over))
+
+    def __call__(self, *args):
+        *state, boards = args
+        if not boards.is_cuda:
+            return self.eager(*args)
+        if profiling.on():
+            profiling.count("replay.eager")
+            return self.eager(*args)
+        key = self.key(*args)
+        if self._graph is not None and self._graph[0] == key:
+            profiling.count("replay.replays")
+        elif self._seen != key:
+            self._seen = key
+            profiling.count("replay.eager")
+            return self.eager(*args)
+        else:
+            self._graph = None
+            self._graph = self._capture(key, state, boards)
+            profiling.count("replay.captures")
+        _, graph, boards_in, actions, counts = self._graph
+        boards_in.copy_(boards)
+        with torch.cuda.device(boards.device):
+            graph.replay()
+        for name, n in counts.items():
+            profiling.count(name, n)
+        return actions.clone()
+
+    def _capture(self, key, state, boards):
+        boards_in = boards.clone()
+        before = profiling.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(boards.device), torch.cuda.graph(graph):
+            actions = self.eager(*state, boards_in)
+        counts = {k: v - before.get(k, 0) for k, v in profiling.counters.items() if v != before.get(k, 0)}
+        for name, n in counts.items():
+            profiling.count(name, -n)
+        return key, graph, boards_in, actions, counts

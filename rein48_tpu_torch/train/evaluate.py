@@ -103,10 +103,17 @@ def evaluate_policy(
 
 
 def _build_search_policy(depth, model, obs_encoding, gamma, reward_transform, chance_chunk=None):
-    """``policy_fn(boards) -> actions`` for :func:`evaluate_search`."""
+    """``policy_fn(boards) -> actions`` for :func:`evaluate_search`.
+
+    With ``model`` the leaves are its value head, and on the card repeated
+    calls replay a CUDA graph of the move (``control/search.Replayed``,
+    keyed on the module's parameters and buffers); ``policy_fn.eager`` is
+    the move launched op by op. The snake heuristic (no ``model``) runs op
+    by op: it copies its weights to the card on every call.
+    """
     if model is None:
         return search.make_expectimax_policy(depth, chance_chunk=chance_chunk)
-    return search.make_expectimax_policy(
+    policy = search.make_expectimax_policy(
         depth,
         leaf_value=search.make_value_leaf(model, obs_encoding),
         reward_fn=lambda r: common.transform_reward(r, reward_transform),
@@ -115,6 +122,7 @@ def _build_search_policy(depth, model, obs_encoding, gamma, reward_transform, ch
         death_value=0.0,
         chance_chunk=chance_chunk,
     )
+    return search.Replayed(policy, (model,))
 
 
 def _search_rollout(start_state, *, policy_fn, num_steps):

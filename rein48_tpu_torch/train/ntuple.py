@@ -367,67 +367,6 @@ def train_ntuple(
     return state, history
 
 
-class _Replayed:
-    """``policy(params, boards)`` that replays a CUDA graph of ``eager``.
-
-    The expectimax tree is thousands of small launches a move, so eagerly
-    the host sets the pace; one graph replay hands the card the whole move.
-    On the card, the first call with a key (the boards' shape, type and
-    device, the grad and inference modes, and each table's address, shape
-    and type) runs eagerly;
-    the next call with the same key captures the graph and every later one
-    replays it, on the tables at those addresses as they stand, so tables
-    updated in place between calls are read anew. A new key runs eagerly
-    again and drops the held graph at its next call. Replays give the
-    eager actions bit for bit: the same kernels on the same inputs.
-
-    A replay adds to the counters (``utils/profiling``) what its capture
-    counted, so ``search.leaf_boards`` and ``ntuple_value.launches`` read as
-    they do eagerly. While spans are on (``profiling.tracing()``) every
-    call runs eagerly, since a span times its work on the device's clock
-    between events that a replay does not record. On the CPU every call
-    runs eagerly. A graph replays the kernels it captured: code patched in
-    after the capture does not reach it (``_get_ntuple_policy.cache_clear()``
-    drops the cached players).
-    """
-
-    def __init__(self, eager):
-        self.eager = eager
-        self._seen = None
-        self._graph = None  # (key, graph, boards_in, actions_out, counts)
-
-    def __call__(self, params, boards):
-        if not boards.is_cuda or profiling.on():
-            return self.eager(params, boards)
-        key = (tuple(boards.shape), boards.dtype, boards.device, torch.is_grad_enabled(),
-               torch.is_inference_mode_enabled(),
-               tuple((k, v.data_ptr(), tuple(v.shape), v.dtype) for k, v in sorted(params.items())))
-        if self._graph is None or self._graph[0] != key:
-            if self._seen != key:
-                self._seen = key
-                return self.eager(params, boards)
-            self._graph = None
-            self._graph = self._capture(key, params, boards)
-        _, graph, boards_in, actions, counts = self._graph
-        boards_in.copy_(boards)
-        with torch.cuda.device(boards.device):
-            graph.replay()
-        for name, n in counts.items():
-            profiling.count(name, n)
-        return actions.clone()
-
-    def _capture(self, key, params, boards):
-        boards_in = boards.clone()
-        before = profiling.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(boards.device), torch.cuda.graph(graph):
-            actions = self.eager(params, boards_in)
-        counts = {k: v - before.get(k, 0) for k, v in profiling.counters.items() if v != before.get(k, 0)}
-        for name, n in counts.items():
-            profiling.count(name, -n)
-        return key, graph, boards_in, actions, counts
-
-
 @functools.lru_cache(maxsize=16)
 def _get_ntuple_policy(net_config: ntuple_lib.NTupleConfig, depth: int, chance_chunk: int | None = None):
     """``policy_fn(params, boards) -> actions`` for the evaluation sweep.
@@ -436,8 +375,10 @@ def _get_ntuple_policy(net_config: ntuple_lib.NTupleConfig, depth: int, chance_c
     wraps the same value in the expectimax tree of ``control/search.py``,
     where n-tuple values are exact afterstate leaves. ``chance_chunk``
     bounds the leaf batch (the same sum). On the card repeated calls replay
-    a CUDA graph of the call (:class:`_Replayed`); ``policy_fn.eager`` is
-    the call launched op by op.
+    a CUDA graph of the call (``control/search.Replayed``, keyed on the
+    tables' addresses); ``policy_fn.eager`` is the call launched op by op.
+    A graph does not see code patched in after its capture:
+    ``_get_ntuple_policy.cache_clear()`` drops the cached players.
     """
     net = get_network(net_config)
 
@@ -451,7 +392,7 @@ def _get_ntuple_policy(net_config: ntuple_lib.NTupleConfig, depth: int, chance_c
             chance_chunk=chance_chunk,
         )(boards)
 
-    return _Replayed(policy_fn)
+    return search.Replayed(policy_fn)
 
 
 @torch.no_grad()

@@ -60,8 +60,11 @@ from torch.profiler import ProfilerActivity, profile, record_function
 # ``hbm_tables.cached_gather``, ``hbm_tables.cached_scatter``,
 # ``ntuple_value.launches``, ``fused.rollout_launches``; never the plain
 # versions), the "cached" backend's delayed windows by branch
-# (``ntuple.cached_fast``, ``ntuple.cached_fallback``) and the boards fed to
-# the search's leaf evaluator (``search.leaf_boards``). A name appears at its
+# (``ntuple.cached_fast``, ``ntuple.cached_fallback``), the boards fed to
+# the search's leaf evaluator (``search.leaf_boards``) and, per call of a
+# learned player on the card, whether it ran eagerly, captured its CUDA
+# graph or replayed it (``replay.eager``, ``replay.captures``,
+# ``replay.replays``; ``control/search.Replayed``). A name appears at its
 # first count.
 counters: dict = {}
 

@@ -597,6 +597,63 @@ def test_ntuple_player_replays_a_graph_of_its_eager_move(cuda):
     assert bool(torch.isfinite(q[legal]).all())
 
 
+@pytest.mark.parametrize("mode", ["autograd", "inference"])
+def test_resnet_player_replays_a_graph_of_its_eager_move(cuda, mode):
+    """The depth-1 value-net player as ``search_depth1`` plays it (a ResNet
+    64x4 leaf, 256 games, chance children 4 at a time, autograd on), and as
+    ``evaluate_search`` plays it (inference mode): the first call with a
+    key runs eagerly, the second captures a CUDA graph and every later one
+    replays it (``replay.*``). Each replay counts what an eager move counts
+    (131,072 leaf boards, 72 launches of the layer norm kernel) and picks
+    the eager move's actions on the same boards, but where the top two q
+    lie within 1e-5 relative (a float tie that other cuDNN algorithms under
+    capture may break the other way). The replay follows weights loaded in
+    place; a new module is a new key and runs eagerly first; with spans on
+    the move runs eagerly."""
+    import copy
+
+    from rein48_tpu_torch.control import search
+    from rein48_tpu_torch.train import evaluate
+
+    model = nets.ResNetPolicy(64, 4, generator=torch.Generator().manual_seed(22)).to(cuda)
+    policy = evaluate._build_search_policy(1, model, "onehot", 0.997, "log2", 4)
+    leaf = search.make_value_leaf(model)
+
+    def in_mode():
+        return torch.inference_mode(mode == "inference")
+
+    def eager_or_tied(got, boards):
+        q, legal = search._action_values(boards, 1, leaf, lambda r: common.transform_reward(r, "log2"), 0.997, 0.0, 4)
+        top = torch.where(legal, q.detach(), -torch.inf).topk(2, -1).values
+        tied = top[:, 0] - top[:, 1] <= 1e-5 * top[:, 0].abs()
+        return bool(((got == policy.eager(boards)) | tied).all())
+
+    names = ("replay.eager", "replay.captures", "replay.replays", "search.leaf_boards", "layer_norm.forward_launches")
+    per_move = {"search.leaf_boards": 256 * 4 * search.CHANCE_BRANCH * 4, "layer_norm.forward_launches": 72}
+    env = vector.reset_batch(22, 256, cuda)
+    other = nets.ResNetPolicy(64, 4, generator=torch.Generator().manual_seed(23)).state_dict()
+    for move in range(9):
+        if move == 4:
+            model.load_state_dict(other)  # in place: the same key
+        if move == 6:
+            model.value_out = copy.deepcopy(model.value_out)  # new tensors: a new key
+            held = policy._graph
+        with in_mode():
+            before = {k: count(k) for k in names}
+            actions = policy(env.boards)
+            counted = {k: count(k) - before[k] for k in names if count(k) != before[k]}
+            kind = {0: "eager", 1: "captures", 6: "eager", 7: "captures"}.get(move, "replays")
+            assert counted == {f"replay.{kind}": 1, **per_move}, (move, counted)
+            assert (policy._graph is held) if move == 6 else (policy._graph is not None) == (move >= 1), move
+            assert eager_or_tied(actions, env.boards), move
+            env, _ = vector.step_autoreset(env, actions)
+    before = count("replay.eager")
+    with profiling.tracing() as trace, in_mode():
+        policy(env.boards)
+    assert count("replay.eager") == before + 1
+    assert len([s for s in trace.spans if s.name == "search.leaf"]) == search.CHANCE_BRANCH // 4
+
+
 def test_ntuple_depth2_boards_with_2_15_tiles_stay_in_the_tables(cuda):
     """Boards with a 2^15 tile through the depth-2 player of ``eval --algo
     ntuple --depth 2 --chance-chunk 8`` at YEH_4X6: the tree spawns only on

@@ -238,6 +238,69 @@ class TestEvaluate:
         assert set(greedy) == set(sampled) and first["episodes"] == 8.0
 
 
+class TestReplayedPlayer:
+    """The value-net player as ``_build_search_policy`` returns it: on the
+    card a CUDA graph of its move (``tests/test_torch_cuda.py``), here its
+    eager move, and the key a graph is held to."""
+
+    @staticmethod
+    def player():
+        from rein48_tpu_torch.models import nets
+
+        model = nets.ResNetPolicy(8, 1, generator=torch.Generator().manual_seed(6)).eval()
+        return model, evaluate._build_search_policy(1, model, "onehot", 0.997, "log2", 4)
+
+    def test_the_cpu_resnet_player_runs_its_eager_move(self):
+        model, policy = self.player()
+        assert isinstance(policy, search.Replayed) and policy.closes_over == (model,)
+        boards = torch.from_numpy(random_boards(np.random.default_rng(7), 6))
+        before = profiling.snapshot()
+        with torch.inference_mode():
+            first, second = policy(boards), policy(boards)
+            assert torch.equal(first, second) and torch.equal(first, policy.eager(boards))
+        assert policy._graph is None
+        # Nothing replays on the CPU, so no call counts as eager, captured or replayed.
+        assert all(profiling.counters.get(k, 0) == before.get(k, 0)
+                   for k in ("replay.eager", "replay.captures", "replay.replays"))
+
+    @pytest.mark.parametrize("held", ["module", "tables"])
+    def test_the_key_keeps_in_place_updates_and_changes_on_a_replaced_tensor(self, held):
+        """The value-net player's key holds its module's parameters, the
+        n-tuple player's its tables: an update in place keeps the key (a
+        graph replays on the new values), a replaced tensor changes it, as
+        do the boards' shape and the grad mode."""
+        if held == "module":
+            model, policy = self.player()
+            state = ()
+
+            def update():
+                model.load_state_dict(self.player()[0].state_dict())
+                model.value_out.bias.add_(1.0)
+
+            def replace():
+                model.value_out.bias = torch.nn.Parameter(model.value_out.bias.detach().clone())
+        else:
+            tables = {"t0": torch.zeros(16), "t1": torch.zeros(256)}
+            policy = search.Replayed(lambda params, b: torch.zeros(b.shape[0], dtype=torch.int64))
+            state = (tables,)
+
+            def update():
+                tables["t1"].add_(1.0)
+
+            def replace():
+                tables["t1"] = tables["t1"].clone()
+
+        boards = torch.from_numpy(random_boards(np.random.default_rng(8), 3))
+        key = policy.key(*state, boards)
+        with torch.no_grad():
+            assert policy.key(*state, boards) != key
+            update()
+        assert policy.key(*state, boards) == key
+        assert policy.key(*state, boards[:2]) != key
+        replace()
+        assert policy.key(*state, boards) != key
+
+
 class TestTorchCli:
     def _run(self, argv):
         buf = io.StringIO()
