@@ -1,7 +1,8 @@
 # Copyright 2026 The rein48-tpu Authors.
 # SPDX-License-Identifier: Apache-2.0
-"""Inputs for checking the port's kernels against their plain versions, and
-the recipes' learning against the JAX runs' recorded curves.
+"""Inputs for checking the port's kernels against their plain versions, the
+tolerances of those checks, and the recipes' learning against the JAX runs'
+recorded curves.
 
 Nothing on a main path reads this module; the tests and ``chip_smoke.py``
 do. It loads without a card and without JAX, and imports the port only
@@ -55,6 +56,127 @@ def edge_boards(n: int, seed: int = 0) -> np.ndarray:
     variants = np.concatenate(turns + [t.transpose(0, 2, 1) for t in turns])
     pick = np.random.default_rng(seed).integers(0, len(variants), n)
     return np.ascontiguousarray(variants[pick])
+
+
+# The tolerances of a kernel against its plain version, for the card's tests
+# and ``chip_smoke.py`` alike. Each check raises ``AssertionError``.
+#
+# Reassociated float32 sums (the scatters' atomics add in an order that
+# changes from run to run): |got - want| <= SUM_ATOL + SUM_RTOL * scale, where
+# ``scale`` sums the magnitudes of each entry's terms (the rounding of a sum
+# grows with its terms, not with its result, which may cancel).
+SUM_RTOL, SUM_ATOL = 1e-5, 1e-6
+
+# A rollout's summed statistics (``engine/fused.FusedRolloutStats``).
+ROLLOUT_STATS = ("episodes", "episode_length_sum", "episode_score_sum", "max_exponent")
+
+# The fused layer norm and ReLU (ops/layer_norm.py) against its plain version
+# (layer_norm_reference then F.relu). Forward: a bfloat16 output is bit-equal
+# to the plain version's but for at most LN_OFF_SHARE of its elements, each
+# at most one bfloat16 ulp away (or under LN_NEAR_ZERO where the value lies at
+# 0, across the ReLU): the kernel adds the row sums in another order, so its
+# statistics differ by float32 ulps and move a value that lies on a bfloat16
+# rounding boundary. A float32 output within LN_F32_TOL
+# (test_torch_models.py's float32 tolerance). Backward: against the plain
+# composition's autograd, fed the kernel's own ReLU mask (where the two
+# forwards' outputs differ across 0 the masks differ, and so must the
+# gradients): dx within one ulp of its type plus LN_GRAD_TOL of its largest
+# value; dscale and dbias within LN_GRAD_TOL of the sum of their terms'
+# magnitudes (float32 sums over up to a million rows in another order).
+LN_OFF_SHARE = 1e-3
+LN_NEAR_ZERO = 1e-6
+LN_F32_TOL = 1e-5
+LN_GRAD_TOL = 1e-5
+
+
+def assert_same_rollout(got, want) -> None:
+    """Two rollouts' ``(state, stats)``: boards, scores, steps and summed
+    statistics bit for bit (the rollout kernel against its plain version)."""
+    import torch
+
+    (gs, gt), (ws, wt) = got, want
+    pairs = [(name, getattr(gs, name), getattr(ws, name)) for name in ("boards", "score", "steps")]
+    pairs += [(name, getattr(gt, name), getattr(wt, name)) for name in ROLLOUT_STATS]
+    for name, g, w in pairs:
+        if not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"the rollouts' {name} differ")
+
+
+def assert_sums_close(got, want, scale) -> None:
+    """Reassociated float32 sums within ``SUM_ATOL + SUM_RTOL * scale``."""
+    excess = float(((got - want).abs() - (SUM_ATOL + SUM_RTOL * scale)).max())
+    if not excess <= 0.0:
+        raise AssertionError(f"sums off by {excess:.3g} past the tolerance")
+
+
+def assert_scatter_matches(got, want) -> None:
+    """A hot-prefix scatter's outputs against its plain version's: the sums
+    within the tolerance above; hits, residue and counts bit-equal."""
+    import torch
+
+    assert_sums_close(got[0], want[0], want[1])
+    assert_sums_close(got[1], want[1], want[1])
+    for name, g, w in zip(("hits", "cold_idx", "cold_err", "counts"), got[2:6], want[2:6]):
+        if not torch.equal(g, w):
+            raise AssertionError(f"the scatter's {name} differ from the plain version's")
+
+
+def ln_plain(x, scale, bias):
+    """The layer norm's plain version: ``layer_norm_reference`` then ReLU."""
+    import torch.nn.functional as F
+
+    from rein48_tpu_torch.ops import layer_norm
+
+    return F.relu(layer_norm.layer_norm_reference(x, scale, bias, 1e-6, x.dtype))
+
+
+def ln_masked_reference_grads(x, scale, bias, dy, out):
+    """The plain composition's gradients, fed the kernel output's ReLU mask."""
+    import torch
+
+    from rein48_tpu_torch.ops import layer_norm
+
+    ref = layer_norm.layer_norm_reference(x, scale, bias, 1e-6, x.dtype)
+    return torch.autograd.grad(ref, (x, scale, bias), dy * (out > 0))
+
+
+def assert_ln_forward_close(got, want) -> None:
+    """The layer norm kernel's output against the plain version's."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=LN_F32_TOL, atol=LN_F32_TOL)
+        return
+    a, b = got.float(), want.float()
+    off = a != b
+    if int(off.sum()) > LN_OFF_SHARE * a.numel():
+        raise AssertionError(f"{int(off.sum())} of {a.numel()} elements differ")
+    big = torch.maximum(a.abs(), b.abs())[off]
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    if not bool(((a - b).abs()[off] <= torch.maximum(ulp, torch.full_like(ulp, LN_NEAR_ZERO))).all()):
+        raise AssertionError("an element differs from the plain version by more than one bfloat16 ulp")
+
+
+def assert_ln_grads_close(got, want, x, dy, out) -> None:
+    """The layer norm kernel's ``(dx, dscale, dbias)`` against the plain
+    version's (``ln_masked_reference_grads``) for the output ``out`` of
+    ``x`` and the incoming gradient ``dy``."""
+    import torch
+
+    dx, wdx = got[0].float(), want[0].float()
+    ulp = 2.0 ** -7 if got[0].dtype == torch.bfloat16 else LN_F32_TOL
+    if not bool(((dx - wdx).abs() <= ulp * wdx.abs() + LN_GRAD_TOL * wdx.abs().max()).all()):
+        raise AssertionError("dx differs from the plain version's past the tolerance")
+    with torch.no_grad():
+        dm = (dy * (out > 0)).float()
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        xhat = (xf - mean) * torch.rsqrt(torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0) + 1e-6)
+        for name, a, b, terms in (("dscale", got[1], want[1], dm * xhat), ("dbias", got[2], want[2], dm)):
+            if not bool(((a - b).abs() <= LN_GRAD_TOL * terms.abs().sum(0) + 1e-30).all()):
+                raise AssertionError(f"{name} differs from the plain version's past the tolerance")
 
 
 def capped_evaluations(evaluations, **caps):

@@ -3,11 +3,10 @@
 """Where the device time goes (counterpart of ``utils/profiling.py``).
 
 :func:`device_breakdown` runs a function under ``torch.profiler`` and
-reports, per call: host wall time, device kernel time, the device's busy
-share (kernel time over wall time; one stream, so kernels do not
-overlap), the number of kernel launches (the host's calls that launch a
-kernel, ``cudaLaunchKernel*`` and ``cuLaunchKernel*``), and the kernels
-that take the most device time. Run as a script on a card, it profiles
+reports, per call: host wall time, device kernel time, the number of
+kernel launches (the host's calls that launch a kernel,
+``cudaLaunchKernel*`` and ``cuLaunchKernel*``), and the kernels that take
+the most device time. Run as a script on a card, it profiles
 one call of each main path of the port at the sizes ``chip_smoke.py``
 drives (``rollout``; ResNet serving, ``serve``; one update of the SJ_2X4
 n-tuple trainer per update mode and table backend and one step of n-tuple
@@ -349,7 +348,6 @@ def device_breakdown(fn, *, warmup: int = 1, reps: int = 3, top: int = 6) -> dic
     return {
         "wall_ms": round(wall_ms, 4),
         "device_ms": round(device_ms, 6),
-        "busy_share": round(device_ms / wall_ms, 4) if wall_ms else None,
         "launches": launch_calls // reps,
         "top": [
             {"kernel": name[:80], "ms": round(us / 1e3 / reps, 6), "calls": calls // reps}

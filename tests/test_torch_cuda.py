@@ -17,14 +17,16 @@ import dataclasses
 
 import pytest
 import torch
-import torch.nn.functional as F
 
 from rein48_tpu_torch import Game, native
 from rein48_tpu_torch.agents import ntuple
 from rein48_tpu_torch.engine import fused, philox, vector
 from rein48_tpu_torch.models import nets, obs
 from rein48_tpu_torch.ops import hbm_tables, layer_norm, tables
-from rein48_tpu_torch.testing import edge_boards
+from rein48_tpu_torch.testing import (
+    LN_GRAD_TOL, ROLLOUT_STATS, assert_ln_forward_close, assert_ln_grads_close, assert_same_rollout,
+    assert_scatter_matches, assert_sums_close, edge_boards, ln_masked_reference_grads, ln_plain,
+)
 from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
 from rein48_tpu_torch.utils import profiling
@@ -34,13 +36,11 @@ import torch_dist_ranks as ranks
 
 pytestmark = pytest.mark.cuda
 
-STAT_FIELDS = ("episodes", "episode_length_sum", "episode_score_sum", "max_exponent")
-
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; chip_smoke.py runs these comparisons on the card")
+        pytest.skip("needs a CUDA device; on the card: python -m pytest tests/test_torch_cuda.py --noconftest")
     return torch.device("cuda")
 
 
@@ -54,14 +54,6 @@ def counts(prefix: str) -> dict:
     return {k: v for k, v in profiling.counters.items() if k.startswith(prefix)}
 
 
-def assert_same(got, want):
-    (gs, gt), (ws, wt) = got, want
-    for name in ("boards", "score", "steps"):
-        assert torch.equal(getattr(gs, name).cpu(), getattr(ws, name).cpu()), name
-    for name in STAT_FIELDS:
-        assert torch.equal(getattr(gt, name).cpu(), getattr(wt, name).cpu()), name
-
-
 @pytest.mark.parametrize("batch, steps", [(1000, 67), (128, 1), (8192, 64)])
 def test_rollout_kernel_matches_plain(cuda, batch, steps):
     # Ragged batches mask the last block; T % 4 != 0 ends inside a word group.
@@ -69,8 +61,8 @@ def test_rollout_kernel_matches_plain(cuda, batch, steps):
     bits = philox.philox_bits(4, steps, batch, device=cuda)
     want = fused.rollout_bits_reference(state, bits)
     before = count("fused.rollout_launches")
-    assert_same(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
-    assert_same(fused.rollout_random_fused(state, 4, steps), want)
+    assert_same_rollout(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
+    assert_same_rollout(fused.rollout_random_fused(state, 4, steps), want)
     assert count("fused.rollout_launches") == before + 2
 
 
@@ -81,18 +73,18 @@ def test_rollout_kernel_slice_draws_the_global_streams(cuda):
     rows = slice(300, 700)
     part = dataclasses.replace(whole, **{f.name: getattr(whole, f.name)[rows] for f in dataclasses.fields(whole)})
     got = fused.rollout_random_fused(part, 9, 37, env_base=300)
-    assert_same(got, fused.rollout_random_reference(part, 9, 37, env_base=300))
+    assert_same_rollout(got, fused.rollout_random_reference(part, 9, 37, env_base=300))
     for name in ("boards", "score", "steps"):
         assert torch.equal(getattr(got[0], name), getattr(want_state, name)[rows]), name
-    for name in STAT_FIELDS:
+    for name in ROLLOUT_STATS:
         assert torch.equal(getattr(got[1], name), getattr(want_stats, name)[rows]), name
 
 
-@pytest.mark.parametrize("steps", [1, 3, 67])
-@pytest.mark.parametrize("batch", [1, 513, 1000])
+@pytest.mark.parametrize("batch, steps", [(b, t) for b in (1, 513, 1000) for t in (1, 3, 67)] + [(65536, 64)])
 def test_rollout_kernel_edge_boards(cuda, batch, steps):
     # Merges at the exponent cap, dead boards, one legal direction, one
-    # blank left, rows of equal tiles; ragged batches; both modes.
+    # blank left, rows of equal tiles; ragged batches, and the bench batch;
+    # both modes.
     g = torch.Generator().manual_seed(batch * 100 + steps)
     state = vector.reset_batch(3, batch, cuda)
     state.boards = torch.from_numpy(edge_boards(batch, batch + steps)).to(cuda)
@@ -101,8 +93,8 @@ def test_rollout_kernel_edge_boards(cuda, batch, steps):
     bits = philox.philox_bits(5, steps, batch, device=cuda)
     want = fused.rollout_bits_reference(state, bits)
     before = count("fused.rollout_launches")
-    assert_same(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
-    assert_same(fused.rollout_random_fused(state, 5, steps), want)
+    assert_same_rollout(fused.rollout_random_fused(state, 0, steps, bits=bits), want)
+    assert_same_rollout(fused.rollout_random_fused(state, 5, steps), want)
     assert count("fused.rollout_launches") == before + 2
 
 
@@ -141,14 +133,6 @@ def test_rollout_kernel_refuses_exponent_16(cuda):
     assert count("fused.rollout_launches") == before + 1
 
 
-def assert_sums_close(got, want, scale):
-    """Reassociated float32 sums: |got - want| <= 1e-6 + 1e-5 * scale, where
-    ``scale`` sums the magnitudes of each entry's terms (the rounding of a
-    sum grows with its terms, not with its result, which may cancel)."""
-    excess = (got - want).abs() - (1e-6 + 1e-5 * scale)
-    assert float(excess.max()) <= 0.0, float(excess.max())
-
-
 def table_inputs(n: int, size: int, device, seed: int = 0):
     """Indices with heavy collisions (a third on a few hot entries), values
     with a share of exact zeros of both signs."""
@@ -173,9 +157,38 @@ def test_table_gather_kernel_is_bit_equal(cuda, n, size):
     assert got.shape == (1, n) and torch.equal(got[0], tables.gather_reference(table, idx))
 
 
+def trainer_stream(n: int, device):
+    """What the SJ_2X4 trainer (B=1,024, T=128) three updates in feeds table
+    0's stats scatter, its tables frozen: each step's 2,048 backups x 8
+    lookups, so one step is 16,384 elements and a delayed window of four
+    65,536; trained boards repeat many entries."""
+    from rein48_tpu_torch.train import ntuple as nt
+
+    cfg = nt.NTupleTrainConfig(tuples=ntuple.SJ_2X4, batch_size=1024, steps_per_update=128)
+    state, net = nt.init_ntuple(cfg, 20260, device)
+    step = nt.make_ntuple_step(cfg, device)
+    for _ in range(3):
+        state, _ = step(state)
+    env, prev_after, prev_valid, idx, vals = state.env, state.prev_after, state.prev_valid, [], []
+    with torch.no_grad():
+        while sum(i.numel() for i in idx) < n:
+            env, prev_after, done, boards, errs, _ = nt._policy_and_backups(net, state.params, env, prev_after, prev_valid)
+            prev_valid = 1.0 - done
+            lookups = net.indices(boards)[0]
+            idx.append(lookups.reshape(-1))
+            vals.append(errs[:, None].expand_as(lookups).reshape(-1))
+    idx, vals = torch.cat(idx), torch.cat(vals)
+    assert idx.numel() == n
+    return idx, vals
+
+
 def table_stream(stream: str, n: int, size: int, device, seed: int = 0):
     """``table_inputs``; "one-entry": every element on one entry; "all-zero":
-    every value an exact zero of either sign."""
+    every value an exact zero of either sign; "trainer": ``trainer_stream``
+    (SJ_2X4's tables hold 65,536 entries)."""
+    if stream == "trainer":
+        assert size == 65536
+        return trainer_stream(n, device)
     idx, vals = table_inputs(n, size, device, seed)
     if stream == "one-entry":
         idx = torch.full_like(idx, 12345 % size)
@@ -184,8 +197,12 @@ def table_stream(stream: str, n: int, size: int, device, seed: int = 0):
     return idx, vals
 
 
-@pytest.mark.parametrize("stream", ["random", "one-entry", "all-zero"])
-@pytest.mark.parametrize("n", [1, 1000, 65537])
+TABLE_SCATTER_CASES = [(n, stream) for n in (1, 1000, 65537) for stream in ("random", "one-entry", "all-zero")] + [
+    (16384, "trainer"), (65536, "trainer"),
+]
+
+
+@pytest.mark.parametrize("n, stream", TABLE_SCATTER_CASES)
 def test_table_scatter_kernel_matches_plain(cuda, n, stream):
     size = 65536
     idx, vals = table_stream(stream, n, size, cuda, seed=n)
@@ -233,17 +250,26 @@ def test_table_kernels_reject_bad_inputs(cuda):
     assert counts("tables.") == before
 
 
-def test_ntuple_mxu_backend_matches_torch_backend(cuda):
+@pytest.mark.parametrize("update, n", [("tc", 512), ("delayed", 8192), ("delayed-no-tc", 8192)])
+def test_ntuple_mxu_backend_matches_torch_backend(cuda, update, n):
+    # Three updates of each kind; a delayed window at the trainer's shape
+    # (four steps of 2,048 backups at B=1,024), with and without TC.
     mxu = ntuple.NTupleNetwork(ntuple.NTupleConfig(tuples=ntuple.SJ_2X4, backend="mxu"))
     plain = ntuple.NTupleNetwork(ntuple.NTupleConfig(tuples=ntuple.SJ_2X4, backend="torch"))
     g = torch.Generator().manual_seed(3)
-    boards = torch.randint(0, 8, (512, 4, 4), generator=g, dtype=torch.uint8).to(cuda)
-    err = torch.randn(512, generator=g).to(cuda)
+    boards = torch.randint(0, 8, (n, 4, 4), generator=g, dtype=torch.uint8).to(cuda)
+    err = torch.randn(n, generator=g).to(cuda)
+
+    def apply(net, params, e):
+        if update == "tc":
+            return net.td_apply_tc(params, boards, e, 1.0)
+        return net.td_apply_delayed(params, boards, e, 1.0, tc=update == "delayed")
+
     a, b, scale = mxu.init_tc(cuda), plain.init_tc(cuda), plain.init_tc(cuda)
     for _ in range(3):
-        mxu.td_apply_tc(a, boards, err, 1.0)
-        plain.td_apply_tc(b, boards, err, 1.0)
-        plain.td_apply_tc(scale, boards, err.abs(), 1.0)  # the same update on magnitudes
+        apply(mxu, a, err)
+        apply(plain, b, err)
+        apply(plain, scale, err.abs())  # the same update on magnitudes
     for k in b:
         assert_sums_close(a[k], b[k], scale[k].abs())
     assert_values_match(mxu, plain, a, a, boards)
@@ -321,14 +347,6 @@ def scatter_stream(stream: str, n: int, k: int, cold_capacity_rows: int, device,
     err[torch.rand(n, generator=g) < 0.2] = 0.0
     err[torch.rand(n, generator=g) < 0.05] = -0.0
     return hot.to(device), idx.to(device), err.to(device)
-
-
-def assert_scatter_matches(got, want):
-    """Sums within the scaled tolerance; hits, residue and counts bit-equal."""
-    assert_sums_close(got[0], want[0], want[1])
-    assert_sums_close(got[1], want[1], want[1])
-    for name, g, w in zip(("hits", "cold_idx", "cold_err", "counts"), got[2:6], want[2:6]):
-        assert torch.equal(g, w), name
 
 
 SCATTER_CASES = [("random", n, 2048, cr) for n in (1, 16384, 40000) for cr in (16, 1)] + [
@@ -698,22 +716,7 @@ def test_ntuple_depth2_boards_with_2_15_tiles_stay_in_the_tables(cuda):
 
 
 # The fused layer norm and ReLU (ops/layer_norm.py) against its plain version
-# (layer_norm_reference then F.relu) on the card. Forward: a bfloat16 output
-# is bit-equal to the plain version's but for at most LN_OFF_SHARE of its
-# elements, each at most one bfloat16 ulp away (or under LN_NEAR_ZERO where
-# the value lies at 0, across the ReLU): the kernel adds the row sums in
-# another order, so its statistics differ by float32 ulps and move a value
-# that lies on a bfloat16 rounding boundary. A float32 output within
-# LN_F32_TOL (test_torch_models.py's float32 tolerance). Backward: against the
-# plain composition's autograd, fed the kernel's own ReLU mask (where the two
-# forwards' outputs differ across 0 the masks differ, and so must the
-# gradients): dx within one ulp of its type plus LN_GRAD_TOL of its largest
-# value; dscale and dbias within LN_GRAD_TOL of the sum of their terms'
-# magnitudes (float32 sums over up to a million rows in another order).
-LN_OFF_SHARE = 1e-3
-LN_NEAR_ZERO = 1e-6
-LN_F32_TOL = 1e-5
-LN_GRAD_TOL = 1e-5
+# on the card, at the tolerances of rein48_tpu_torch/testing.py (LN_*).
 BF16 = torch.bfloat16
 LN_CASES = [  # rows, channels, the type of x, the output, dy and dx
     (8192 * 16, 64, BF16), (16384 * 16, 64, BF16), (65536 * 16, 64, BF16),
@@ -737,29 +740,6 @@ def ln_inputs(rows: int, c: int, dtype, device, seed: int = 0):
     return [t.requires_grad_(True) for t in (x, scale, bias)], dy
 
 
-def ln_plain(x, scale, bias):
-    return F.relu(layer_norm.layer_norm_reference(x, scale, bias, 1e-6, x.dtype))
-
-
-def assert_ln_forward_close(got, want):
-    assert got.dtype == want.dtype and got.shape == want.shape
-    if got.dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=LN_F32_TOL, atol=LN_F32_TOL)
-        return
-    a, b = got.float(), want.float()
-    off = a != b
-    assert int(off.sum()) <= LN_OFF_SHARE * a.numel(), f"{int(off.sum())} of {a.numel()} elements differ"
-    big = torch.maximum(a.abs(), b.abs())[off]
-    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
-    assert bool(((a - b).abs()[off] <= torch.maximum(ulp, torch.full_like(ulp, LN_NEAR_ZERO))).all())
-
-
-def ln_masked_reference_grads(x, scale, bias, dy, out):
-    """The plain composition's gradients, fed the kernel output's ReLU mask."""
-    ref = layer_norm.layer_norm_reference(x, scale, bias, 1e-6, x.dtype)
-    return torch.autograd.grad(ref, (x, scale, bias), dy * (out > 0))
-
-
 @pytest.mark.parametrize("rows, c, dtype", LN_CASES)
 def test_layer_norm_kernel_matches_plain(cuda, rows, c, dtype):
     (x, scale, bias), dy = ln_inputs(rows, c, dtype, cuda)
@@ -773,17 +753,7 @@ def test_layer_norm_kernel_matches_plain(cuda, rows, c, dtype):
     got = torch.autograd.grad(out, (x, scale, bias), dy, retain_graph=True)
     assert {k: count(k) - before[k] for k in LN_COUNTERS} == dict(zip(LN_COUNTERS, (2, 1, 1)))
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
-    want = ln_masked_reference_grads(x, scale, bias, dy, out)
-    dx, wdx = got[0].float(), want[0].float()
-    ulp = 2.0 ** -7 if dtype == BF16 else LN_F32_TOL
-    assert bool(((dx - wdx).abs() <= ulp * wdx.abs() + LN_GRAD_TOL * wdx.abs().max()).all())
-    with torch.no_grad():
-        dm = (dy * (out > 0)).float()
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        xhat = (xf - mean) * torch.rsqrt(torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0) + 1e-6)
-        for name, a, b, terms in (("dscale", got[1], want[1], dm * xhat), ("dbias", got[2], want[2], dm)):
-            assert bool(((a - b).abs() <= LN_GRAD_TOL * terms.abs().sum(0) + 1e-30).all()), name
+    assert_ln_grads_close(got, ln_masked_reference_grads(x, scale, bias, dy, out), x, dy, out)
     # The same bits on a second run: no float atomics.
     again = torch.autograd.grad(out, (x, scale, bias), dy)
     for a, b in zip(got, again):

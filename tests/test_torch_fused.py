@@ -5,8 +5,9 @@
 The plain version is held bit for bit against the JAX package's plain
 reference (``rein48_tpu.engine.fused.rollout_bits_reference``) on the same
 injected words. The CUDA kernel runs only on the card: its tests are in
-``test_torch_cuda.py``, which imports no JAX so that it runs there, and
-``chip_smoke.py`` is what proves it.
+``test_torch_cuda.py``, which imports no JAX so that it runs there and holds
+the kernel to the plain version, the edge boards included;
+``chip_smoke.py`` holds it at the bench shape, where it times both.
 """
 
 from __future__ import annotations
@@ -105,8 +106,7 @@ class TestStepEquivalence:
 class TestEdgeBoards:
     """Positions random play rarely reaches (``testing.edge_boards``): the
     plain version against JAX's on the same boards and words. The card-only
-    tests and ``chip_smoke.py`` hold the kernel to the plain version on
-    them."""
+    tests hold the kernel to the plain version on them."""
 
     B, T = 512, 67
 
