@@ -439,6 +439,46 @@ def layer_norm_phase(dev) -> dict:
     return {"rows": rows, "t": t, "bound_f": bound_f, "bound_b": bound_b}
 
 
+# The engine step kernel's bytes a board: it reads the board (16 B), score
+# and steps (4 each), the action, seed, env id and counter (8 each), and
+# writes the board, score, steps, done (1) and counter and the seven
+# StepOutput fields (22). Its batches: a search move's and a PPO acting step's.
+STEP_BYTES_PER_BOARD = 56 + 55
+STEP_BATCHES = (256, 8192)
+
+
+def engine_step_phase(dev) -> dict:
+    """The engine's step kernel (``vector.step_autoreset`` on the card) at
+    ``STEP_BATCHES`` beside the plain step it replaced (``vector._advance``
+    on the stream's words), its output held to the plain step's bit for bit:
+    device time, launches a call, and the bound by bytes."""
+    from rein48_tpu_torch import testing
+    from rein48_tpu_torch.engine import core, philox, vector
+
+    out = {}
+    for b in STEP_BATCHES:
+        g = torch.Generator().manual_seed(SEED + b)
+        state = vector.reset_batch(SEED + b, b, dev)
+        edge = torch.from_numpy(testing.edge_boards(b, SEED + b)).to(dev)
+        state.boards = torch.where((torch.arange(b, device=dev) % 2 == 0)[:, None, None], edge, state.boards)
+        actions = torch.randint(0, 4, (b,), generator=g).to(dev)
+
+        def plain():
+            words = philox.step_words(state.seed, state.env_id, state.counter)
+            return vector._advance(state, actions, words, core.RewardMode.MERGE_SCORE)
+
+        testing.assert_same_step(vector.step_autoreset(state, actions), plain())
+        kernel, ref = timed(lambda: vector.step_autoreset(state, actions)), timed(plain)
+        bound = 1e3 * b * STEP_BYTES_PER_BOARD / HBM_BYTES_PER_S
+        log(f"engine-step/b{b}", ms=kernel["ms"], call_ms=round(kernel["call_ms"], 5), launches=kernel["launches"],
+            plain_ms=ref["ms"], plain_call_ms=round(ref["call_ms"], 5), plain_launches=ref["launches"],
+            bound_ms=round(bound, 6), outputs_equal=True)
+        if kernel["launches"] != 1:
+            raise AssertionError(f"the engine step made {kernel['launches']} launches at B={b}")
+        out[b] = {"ms": kernel["ms"], "plain_ms": ref["ms"], "plain_launches": ref["launches"], "bound_ms": bound}
+    return out
+
+
 # The layer norm kernel's counters (``ops/layer_norm.py``) by the names this
 # script reports them under, and the part of its kernels' names that the
 # profiler shows. ``actor_critic_train_phase`` keeps them per trainer: the
@@ -461,6 +501,11 @@ TABLE_COUNTERS = {
 # The "cached" backend's delayed windows by branch.
 WINDOW_COUNTERS = {"fast": "ntuple.cached_fast", "fallback": "ntuple.cached_fallback"}
 ROLLOUT_COUNTER = "fused.rollout_launches"
+# The engine step's counters (``engine/vector.py``): launches of its kernel,
+# and steps of the plain path, which no path on the card may take.
+STEP_COUNTERS = {"engine_step": "engine.step_launches", "engine_step_plain": "engine.step_plain"}
+# Per trainer, the step kernel's launches in its profiled update.
+STEP_PER_UPDATE: dict = {}
 
 
 def counter(name: str) -> int:
@@ -476,10 +521,33 @@ def set_counter(name: str, value: int) -> None:
 
 
 def zero_table_counts() -> None:
-    """Set the launch counts of the table and value kernels and the cached
-    window branch counts to 0."""
-    for name in (*TABLE_COUNTERS.values(), *WINDOW_COUNTERS.values()):
+    """Set the launch counts of the table and value kernels, the cached
+    window branch counts and the engine step's counts to 0."""
+    for name in (*TABLE_COUNTERS.values(), *WINDOW_COUNTERS.values(), *STEP_COUNTERS.values()):
         set_counter(name, 0)
+
+
+def step_counts() -> dict:
+    """The engine step's kernel launches and plain steps."""
+    return {k: counter(name) for k, name in STEP_COUNTERS.items()}
+
+
+def check_steps(name: str, counts: dict, steps: int | None = None) -> None:
+    """Raise unless the engine steps in ``counts`` (a change of
+    :func:`step_counts`) all launched the step kernel: ``steps`` launches
+    where given, else at least one, and no plain step."""
+    launched, plain = counts["engine_step"], counts["engine_step_plain"]
+    if plain or (launched != steps if steps is not None else not launched):
+        want = "some" if steps is None else steps
+        raise AssertionError(f"{name} launched the step kernel {launched} times (want {want}) and took {plain} plain steps")
+
+
+def check_other_paths(name: str, launched: dict, steps: int | None = None) -> None:
+    """Raise unless ``launched`` (a change of :func:`kernel_launches`) holds
+    no kernel of another path and the engine steps :func:`check_steps` wants."""
+    if any(v for k, v in launched.items() if k not in STEP_COUNTERS):
+        raise AssertionError(f"{name} launched a kernel of another path: {launched}")
+    check_steps(name, launched, steps)
 
 
 def cached_windows() -> dict:
@@ -642,6 +710,7 @@ def ntuple_trainer_phase(dev):
         zero_table_counts()
         state, history = nt.train_ntuple(cfg, updates, seed=SEED, log_every=1, logger=clock, device=dev)
         counts = table_counts()
+        check_steps(f"train_ntuple({mode})", step_counts(), NT_T * updates)
         # Per env step: one fused value call for the afterstates and one for
         # prev_after, no standalone gather; per step ("step") or per window
         # ("delayed"), one stats scatter per table.
@@ -676,6 +745,7 @@ def ntuple_trainer_phase(dev):
         )
         wall = time.perf_counter() - t0
         counts = table_counts()
+        check_steps(f"depth-0 evaluate_ntuple of the {name} tables", step_counts(), NT_EVAL_STEPS)
         for k in launched:
             launched[k] += counts[k]
         scores[name] = stats["avg_score"]
@@ -1152,8 +1222,8 @@ def run_cli(argv) -> dict:
 
 
 def kernel_launches() -> dict:
-    """Every launch count of the port's kernels."""
-    return {"rollout": counter(ROLLOUT_COUNTER), **table_counts()}
+    """Every launch count of the port's kernels, and the plain engine steps."""
+    return {"rollout": counter(ROLLOUT_COUNTER), **table_counts(), **step_counts()}
 
 
 def afterstate_config():
@@ -1210,6 +1280,7 @@ def afterstate_train_phase(dev, ckpt_dir):
     )
     if not all(np.isfinite(v) for r in history for v in r.values()) or len(history) != AS_UPDATES:
         raise AssertionError(f"train_afterstate_td records not finite: {history}")
+    check_other_paths("afterstate/train", launched, AS_UPDATES * T)
     moved = any(not torch.equal(v.cpu(), init[k]) for k, v in state.model.state_dict().items())
     if not moved:
         raise AssertionError("train_afterstate_td did not move the parameters")
@@ -1460,11 +1531,13 @@ def actor_critic_train_phase(name, dev, cfg, updates, ckpt_dir=None):
     def update():
         box[0] = step(box[0])[0]
 
-    for c in LN_COUNTERS.values():
+    for c in (*LN_COUNTERS.values(), *STEP_COUNTERS.values()):
         set_counter(c, 0)
     # Every kernel of the update ranked, so that the layer norm's are all found.
     prof = profiling.device_breakdown(update, warmup=0, reps=1, top=1 << 20)
     norms = {k: counter(c) for k, c in LN_COUNTERS.items()}
+    stepped = step_counts()
+    STEP_PER_UPDATE[name] = stepped["engine_step"]
     norms["ms"] = sum(t["ms"] for t in prof["top"] if LN_KERNEL in t["kernel"])
     norms["bound_ms"] = 1e3 * norms.pop("bound_bytes") / HBM_BYTES_PER_S
     norms["roofline"] = 100.0 * norms["bound_ms"] / norms["ms"] if norms["ms"] else 0.0
@@ -1481,9 +1554,11 @@ def actor_critic_train_phase(name, dev, cfg, updates, ckpt_dir=None):
         profiled_update=json.dumps({k: prof[k] for k in ("device_ms", "launches")}),
         top_kernels=json.dumps(prof["top"][:5]), kernel_launches=json.dumps(launched), records=json.dumps(record),
         layer_norm_per_update=json.dumps({k: round(v, 5) for k, v in norms.items()}),
+        engine_steps_per_update=json.dumps(stepped),
     )
-    if any(launched.values()):
-        raise AssertionError(f"{name} launched a kernel of another path: {launched}")
+    # One step kernel an acting step, T an update; no plain step.
+    check_other_paths(name, launched, updates * T)
+    check_steps(f"{name}'s profiled update", stepped, T)
     if not 0 < norms["backward"] == norms["backward_sum"] <= norms["forward"] or not norms["ms"]:
         raise AssertionError(f"{name}: the ResNet's layer norms did not all run the kernel: {norms}")
 
@@ -1582,8 +1657,9 @@ def a3c_parity_phase(dev):
         targets_nonzero=int(targets.count_nonzero()), loss=round(float(metrics["loss"]), 6),
         critic_loss=round(float(metrics["critic_loss"]), 6), kernel_launches=json.dumps(launched),
         records=json.dumps({k: round(v, 6) for k, v in history[-1].items()}))
-    if not (zero_reward and bootstrap_only) or not all(np.isfinite(v) for r in history for v in r.values()) or any(launched.values()):
+    if not (zero_reward and bootstrap_only) or not all(np.isfinite(v) for r in history for v in r.values()):
         raise AssertionError(f"a3c reference parity: rewards zero {zero_reward}, targets bootstrap-only {bootstrap_only}")
+    check_other_paths("a3c reference parity", launched, A3C_PARITY_UPDATES * cfg.unroll_len)
 
 
 def ppo_checkpoint_phase(state, cfg, ckpt_dir, dev):
@@ -1786,8 +1862,7 @@ def replay_trainer_run(name, dev, cfg, updates, train, state_fn):
     state, history = train(cfg, updates, seed=SEED, log_every=1, logger=clock, checkpointer=probe, device=dev)
     wall = time.perf_counter() - t0
     launched = {k: v - before[k] for k, v in kernel_launches().items()}
-    if any(launched.values()):
-        raise AssertionError(f"{name} launched a kernel of another path: {launched}")
+    check_other_paths(name, launched)
     if len(history) != updates or not all(np.isfinite(v) for r in history for v in r.values()):
         raise AssertionError(f"{name} records not finite: {history}")
     per_update = [clock.records[0][0] - t0] + clock.per_update_s()
@@ -2770,7 +2845,7 @@ def frontier_phase(dev) -> None:
                 t0 = time.perf_counter()
                 out = module.main(argv, device=dev)
                 wall = time.perf_counter() - t0
-                launches = table_counts()
+                launches, stepped = table_counts(), step_counts()
                 got = _recipe.written_keys(module)
         finally:
             module.evaluations = saved
@@ -2779,8 +2854,9 @@ def frontier_phase(dev) -> None:
             f"recipes/{name}", argv=" ".join(argv), backend=backend, wall_s=round(wall, 2),
             peak_gib=round(torch.cuda.max_memory_allocated(dev) / 2**30, 3),
             **{k: v for k, v in leg.items() if k not in ("backend", "eval")}, eval=json.dumps(leg["eval"]),
-            launches=json.dumps({k: v for k, v in launches.items() if v}),
+            launches=json.dumps({k: v for k, v in launches.items() if v}), engine_steps=json.dumps(stepped),
         )
+        check_steps(f"{name} on {backend!r}", stepped)
         want = _recipe.jax_keys(module, root)
         if got != want:
             raise AssertionError(f"{name} wrote records with keys {got}, the JAX record {want}")
@@ -2833,7 +2909,7 @@ def capability_phase(dev, name: str, random_tile_sum: float | None = None, backe
         configure = None if backend is None else (lambda c, backend=backend: dataclasses.replace(c, table_backend=backend))
         zero_table_counts()
         result = learning_curve(check, root, dev, configure=configure, num_steps=RECIPE_EVAL_STEPS)
-        launches = table_counts()
+        launches, stepped = table_counts(), step_counts()
         config, curve, jax_curve, checks = result["config"], result["curve"], result["jax_curve"], check.checks
         updates = int(check.argv[0])
         B = config.num_envs if hasattr(config, "num_envs") else config.batch_size
@@ -2867,8 +2943,10 @@ def capability_phase(dev, name: str, random_tile_sum: float | None = None, backe
                        restored=json.dumps(saved))
         if check.same_start:
             row["warm_start"] = json.dumps(result["record"]["config"]["warm_start"])
-        log(f"capability/{name}", **row, launches=json.dumps({k: v for k, v in launches.items() if v}))
+        log(f"capability/{name}", **row, launches=json.dumps({k: v for k, v in launches.items() if v}),
+            engine_steps=json.dumps(stepped))
         run = f"{check.recipe}{'' if backend is None else f' under {backend!r}'}"
+        check_steps(run, stepped)
         for col, ratio in ratios.items():
             if not CAPABILITY_BAND[0] <= ratio <= CAPABILITY_BAND[1]:
                 raise AssertionError(f"{run} has {col} at {ratio:.4f} of the JAX run's at updates {list(checks)}")
@@ -2951,6 +3029,7 @@ def main() -> int:
     model = nets.ResNetPolicy(64, 4, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED)).to(dev).eval()
     serving = {}
     for depth, envs, steps, chunk, launch in ((0, 1024, 512, None, 256), (1, 256, 128, 4, 128)):
+        zero_table_counts()
         stats = evaluate.evaluate_search(
             depth=depth, num_envs=envs, num_steps=steps, seed=123, model=model,
             chance_chunk=chunk, protocol="first", launch_chunk=launch, device=dev,
@@ -2958,8 +3037,9 @@ def main() -> int:
         if not all(np.isfinite(v) for v in stats.values()) or stats["episodes"] != envs:
             raise AssertionError(f"depth-{depth} stats malformed: {stats}")
         serving[depth] = dict(envs=envs, steps=steps, chunk=chunk)
-        log(f"serve/depth{depth}", envs=envs, steps=steps, chance_chunk=chunk,
+        log(f"serve/depth{depth}", envs=envs, steps=steps, chance_chunk=chunk, engine_steps=json.dumps(step_counts()),
             stats=json.dumps({k: round(v, 3) for k, v in stats.items()}))
+        check_steps(f"serve/depth{depth}", step_counts(), steps)  # one step kernel a move
     launches = counter(ROLLOUT_COUNTER)
     if launches <= 0:
         raise AssertionError("the bench path launched no rollout kernel")
@@ -3060,6 +3140,8 @@ def main() -> int:
     floor_ms = floor_phase(dev)
     norm = layer_norm_phase(dev)
     lap("layer norm kernel")
+    engine_step = engine_step_phase(dev)
+    lap("engine step kernel")
     state, net, gathers, window = ntuple_trainer_inputs(dev)
     gather, scatter = table_kernel_phase(state, net, gathers, window)
     after = nt._all_afterstates(state.env.boards)[0]
@@ -3286,6 +3368,29 @@ def main() -> int:
         "library_ms": None,
         "library_note": "no PyTorch call computes boards -> summed lookups",
         "launches_per_update": {name: r["launches"] for name, r in value_launches.items()},
+    })
+    small, large = (engine_step[b] for b in STEP_BATCHES)
+    kernels.append({
+        "name": "engine_step",
+        "route": "cuda",
+        "source": "rein48_tpu_torch/csrc/rollout.cu",
+        # No Pallas kernel: in the JAX package XLA fuses engine/vector.py's step.
+        "replaces": None,
+        "replaces_note": "the XLA fusion of rein48_tpu/engine/vector.py's step_autoreset",
+        # One launch an acting step, counted in [ppo/train]'s profiled update
+        # (1 a search move, counted in [serve/depth*]).
+        "launches": STEP_PER_UPDATE["ppo/train"],
+        "n": STEP_BATCHES[1],
+        "ms": large["ms"],
+        "ms_b256": small["ms"],
+        "plain_ms": large["plain_ms"],
+        "plain_ms_b256": small["plain_ms"],
+        "plain_launches": large["plain_launches"],
+        "bound_ms": round(large["bound_ms"], 6),
+        "bound_ms_b256": round(small["bound_ms"], 6),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no PyTorch call steps a 2048 board",
     })
     nt_, ln_ppo = norm["t"], LN_PER_UPDATE["ppo/train"]
     launches = ln_ppo["forward"] + ln_ppo["backward"] + ln_ppo["backward_sum"]

@@ -12,6 +12,7 @@ build happens on first use, from the package's sources only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -97,3 +98,12 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+@functools.cache
+def bind(name: str, symbol: str, argtypes: tuple):
+    """The entry point ``symbol`` of kernel ``name``'s library with its C
+    argument types; each returns a ``cudaError_t`` as an int."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+    return fn

@@ -1,7 +1,8 @@
 // Copyright 2026 The rein48-tpu Authors.
 // SPDX-License-Identifier: Apache-2.0
 //
-// Fused random-policy 2048 rollout for NVIDIA Hopper (sm_90a).
+// Fused random-policy 2048 rollout for NVIDIA Hopper (sm_90a), and a
+// one-step kernel for given actions (the step kernel, below the rollout).
 //
 // Replaces: rein48_tpu/engine/fused.py::_rollout_kernel (the Pallas TPU
 // kernel behind rollout_random_fused). Same function: num_steps
@@ -320,6 +321,259 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   stats[3 * n + e] = s.max_exp;
 }
 
+// ---------------------------------------------------------------------------
+// The step kernel: one autoreset step per env for given actions, behind
+// engine/vector.py's step_autoreset (Philox words) and
+// step_autoreset_from_bits (injected words). It replaces no Pallas kernel:
+// XLA fuses the JAX package's engine/vector.py step. The plain step,
+// _step_from_bits, launches ~464 kernels on the card for what this does in
+// one; the two agree bit for bit (float fields by the same float32 adds and
+// exact integer conversions).
+//
+// What bounds it: latency. A step moves 111 bytes a board (the state and
+// action in, the new state and the step's record out), 0.27 us at 8,192
+// boards, under the card's launch floor; the rest is one chain of dependent
+// integer work per thread. So the design keeps everything in registers and
+// reads device memory once:
+// - One thread an env, 128 a block, any batch. The board stays a row of
+//   four byte cells a 32-bit word, as it lies in memory, so cells keep their
+//   full byte (exponents above 15 step as the plain version steps them).
+//   The rollout's nibble helpers (pack_row, zero_nibbles, transpose_if)
+//   would pack a cell into 4 bits: the step would then have to refuse
+//   exponents above 15 as fused._check_legal does, by reading the boards on
+//   the host, a wait for the device on every step, or differ from the plain
+//   step on such boards. Each byte helper below is the nibble one's twin.
+// - Orientation by byte permutes (a transpose is eight, a row reversal one);
+//   rows merged by core.merge_cells_left's compare-exchange network. The
+//   rollout's row table read through L2 was slower at 256 and 8,192 boards,
+//   the main path's batches (PERF.md), and slower still once evicted.
+// - The two Philox blocks that hold the step's words, in registers; the
+//   injected mode reads four words at the caller's strides instead.
+// - Blanks, the spawn's running count and the neighbour test on zero bytes
+//   of the rows, as the rollout does on zero nibbles.
+
+constexpr int kStepThreads = 128;
+constexpr uint32_t kMaxExponent = 15;  // lut.MAX_EXPONENT: merges saturate there
+
+struct StepArgs {
+  const uint4* boards_in;  // uint8[n, 16]
+  const float* score_in;
+  const int32_t* steps_in;
+  const int64_t* actions;
+  const int64_t* seed;
+  const int64_t* env_id;
+  const int64_t* counter;
+  const int64_t* bits;  // [n, 4] words at (bits_row, bits_col) element strides, or null
+  int64_t bits_row, bits_col;
+  uint4* boards_out;
+  float* score_out;
+  int32_t* steps_out;
+  uint8_t* state_done_out;
+  int64_t* counter_out;
+  float* reward;
+  uint8_t* done;
+  uint8_t* changed;
+  float* episode_score;
+  float* episode_tile_sum;
+  int32_t* episode_length;
+  float* max_tile;
+  int64_t n;
+  int parity_zero;
+};
+
+// Bit 8j+7 is set where byte j of x is 0 (no carry leaves a byte).
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
+  return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
+}
+
+// The transpose of four rows of four byte cells (row r, byte c = cell (r, c)).
+__device__ __forceinline__ void transpose_rows(uint32_t r[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140u), t1 = __byte_perm(r[0], r[1], 0x7362u);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140u), t3 = __byte_perm(r[2], r[3], 0x7362u);
+  r[0] = __byte_perm(t0, t2, 0x5410u);
+  r[1] = __byte_perm(t0, t2, 0x7632u);
+  r[2] = __byte_perm(t1, t3, 0x5410u);
+  r[3] = __byte_perm(t1, t3, 0x7632u);
+}
+
+// core._orient and _unorient on byte rows: the move becomes a merge toward
+// byte 0 (vertical: transpose; mirrored: reverse each row), and back.
+__device__ __forceinline__ void orient(uint32_t r[4], bool vertical, uint32_t mirror_sel) {
+  uint32_t t[4] = {r[0], r[1], r[2], r[3]};
+  transpose_rows(t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = __byte_perm(vertical ? t[i] : r[i], 0, mirror_sel);
+}
+
+__device__ __forceinline__ void unorient(uint32_t r[4], bool vertical, uint32_t mirror_sel) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = __byte_perm(r[i], 0, mirror_sel);
+  uint32_t t[4] = {r[0], r[1], r[2], r[3]};
+  transpose_rows(t);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r[i] = vertical ? t[i] : r[i];
+}
+
+// core.merge_cells_left on a row of four byte cells, toward byte 0: the
+// compare-exchange compaction, then the left-priority pair merges, which
+// saturate at kMaxExponent and pay 2^(e+1). Returns the row's score.
+__device__ __forceinline__ int merge_row(uint32_t& row) {
+  uint32_t c[4] = {row & 0xFFu, (row >> 8) & 0xFFu, (row >> 16) & 0xFFu, row >> 24};
+#pragma unroll
+  for (int npairs = 3; npairs >= 1; --npairs) {
+#pragma unroll
+    for (int i = 0; i < npairs; ++i) {
+      const bool sw = c[i] == 0u && c[i + 1] != 0u;
+      c[i] = sw ? c[i + 1] : c[i];
+      c[i + 1] = sw ? 0u : c[i + 1];
+    }
+  }
+  const bool m01 = c[0] != 0u && c[0] == c[1];
+  const bool m12 = c[1] != 0u && c[1] == c[2] && !m01;
+  const bool m23 = c[2] != 0u && c[2] == c[3] && !m12;
+  const uint32_t b0 = min(c[0] + 1u, kMaxExponent), b1 = min(c[1] + 1u, kMaxExponent);
+  const uint32_t b2 = min(c[2] + 1u, kMaxExponent);
+  const uint32_t o0 = m01 ? b0 : c[0];
+  const uint32_t o1 = m01 ? (m23 ? b2 : c[2]) : (m12 ? b1 : c[1]);
+  const uint32_t o2 = m01 ? (m23 ? 0u : c[3]) : (m12 ? c[3] : (m23 ? b2 : c[2]));
+  const uint32_t o3 = (m01 || m12 || m23) ? 0u : c[3];
+  row = o0 | (o1 << 8) | (o2 << 16) | (o3 << 24);
+  return (m01 ? 2 << c[0] : 0) + (m12 ? 2 << c[1] : 0) + (m23 ? 2 << c[2] : 0);
+}
+
+// Env e's step. The plain version's order: move, spawn where the move
+// changed the board, game over, episode statistics, reset of a finished
+// board from the RESET_* words.
+template <bool kInjected>
+__device__ __forceinline__ void step_env(const StepArgs& a, int64_t e) {
+  const uint4 raw = a.boards_in[e];
+  const uint32_t before[4] = {raw.x, raw.y, raw.z, raw.w};
+  const int64_t action = a.actions[e];
+  const bool vertical = action == 0 || action == 1;  // UP, DOWN
+  const bool mirrored = action == 1 || action == 3;  // DOWN, RIGHT
+  const uint32_t mirror_sel = mirrored ? 0x0123u : 0x3210u;
+
+  uint32_t r[4] = {before[0], before[1], before[2], before[3]};
+  orient(r, vertical, mirror_sel);
+  long long merge_score = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) merge_score += merge_row(r[i]);
+  unorient(r, vertical, mirror_sel);
+  const bool changed = (r[0] != before[0]) | (r[1] != before[1]) | (r[2] != before[2]) | (r[3] != before[3]);
+
+  // The step's words after ACTION: spawn rank, spawn value, reset rank,
+  // reset value.
+  uint32_t w[4];
+  if constexpr (kInjected) {
+    const int64_t* b = a.bits + e * a.bits_row;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = static_cast<uint32_t>(b[k * a.bits_col]);
+  } else {
+    // Words 5n .. 5n+4 of stream (seed, env), n = counter: lanes
+    // 5n & 3 .. of blocks 5n >> 2 and the next (philox.step_words).
+    const uint64_t seed = static_cast<uint64_t>(a.seed[e]), env = static_cast<uint64_t>(a.env_id[e]);
+    const uint64_t first = static_cast<uint64_t>(a.counter[e]) * kWords;
+    uint32_t rk0[kPhiloxRounds], rk1[kPhiloxRounds];
+#pragma unroll
+    for (int i = 0; i < kPhiloxRounds; ++i) {
+      rk0[i] = static_cast<uint32_t>(seed) + static_cast<uint32_t>(i) * kPhiloxW0;
+      rk1[i] = static_cast<uint32_t>(seed >> 32) + static_cast<uint32_t>(i) * kPhiloxW1;
+    }
+    uint32_t v[2][4];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const uint64_t block = (first >> 2) + k;
+      uint32_t c[4] = {static_cast<uint32_t>(block), static_cast<uint32_t>(block >> 32), static_cast<uint32_t>(env),
+                       static_cast<uint32_t>(env >> 32)};
+      philox4x32_10(c, rk0, rk1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[k][j] = c[j];
+    }
+    switch (static_cast<int>(first & 3u)) {
+      case 0: w[0] = v[0][1]; w[1] = v[0][2]; w[2] = v[0][3]; w[3] = v[1][0]; break;
+      case 1: w[0] = v[0][2]; w[1] = v[0][3]; w[2] = v[1][0]; w[3] = v[1][1]; break;
+      case 2: w[0] = v[0][3]; w[1] = v[1][0]; w[2] = v[1][1]; w[3] = v[1][2]; break;
+      default: w[0] = v[1][0]; w[1] = v[1][1]; w[2] = v[1][2]; w[3] = v[1][3]; break;
+    }
+  }
+
+  // Spawn on the rank-th blank in cell order: the running count of blanks
+  // (a byte a cell, counts of at most 4 a row plus the rows before) equals
+  // rank + 1 at that blank; a disabled spawn targets 0, which no blank's
+  // count is.
+  uint32_t z[4];
+  int n_blanks = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    z[i] = zero_bytes(r[i]);
+    n_blanks += __popc(z[i]);
+  }
+  const int rank = static_cast<int>(((w[0] >> 8) * static_cast<uint32_t>(n_blanks)) >> 24);
+  const bool enabled = changed && n_blanks > 0;
+  const uint32_t value = w[1] < kSpawn4Threshold ? 2u : 1u;
+  int target = enabled ? rank + 1 : 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t running = (z[i] >> 7) * 0x01010101u;
+    const bool here = target >= 1 && target <= 4;
+    const uint32_t hit = here ? zero_bytes(running ^ (static_cast<uint32_t>(target) * 0x01010101u)) & z[i] : 0u;
+    r[i] += (hit >> 7) * value;
+    target -= __popc(z[i]);
+  }
+
+  // Game over: full after the spawn, and no equal neighbours in a row
+  // (bytes 0-2 against 1-3) or a column (row i against i + 1).
+  const bool full = n_blanks == static_cast<int>(enabled);
+  uint32_t neigh = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) neigh |= zero_bytes(r[i] ^ (r[i] >> 8)) & 0x00808080u;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) neigh |= zero_bytes(r[i] ^ r[i + 1]);
+  const bool done = full && neigh == 0u;
+
+  long long tile_sum = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t x = (r[i] >> (8 * j)) & 0xFFu;
+      tile_sum += x ? 1ll << x : 0ll;
+    }
+  }
+  const uint32_t top4 = __vmaxu4(__vmaxu4(r[0], r[1]), __vmaxu4(r[2], r[3]));
+  const uint32_t top = max(max(top4 & 0xFFu, (top4 >> 8) & 0xFFu), max((top4 >> 16) & 0xFFu, top4 >> 24));
+
+  const float merge = static_cast<float>(merge_score);
+  const float episode_score = __fadd_rn(a.score_in[e], merge);
+  const int32_t episode_length = a.steps_in[e] + 1;
+  uint4 out = make_uint4(r[0], r[1], r[2], r[3]);
+  if (done) {
+    // place_tile on an empty board: rank (w >> 8) * 16 >> 24 = w >> 28.
+    const uint32_t cell = w[2] >> 28;
+    const uint32_t tile = (w[3] < kSpawn4Threshold ? 2u : 1u) << (8 * (cell & 3u));
+    out = make_uint4(cell >> 2 == 0 ? tile : 0u, cell >> 2 == 1 ? tile : 0u, cell >> 2 == 2 ? tile : 0u,
+                     cell >> 2 == 3 ? tile : 0u);
+  }
+  a.boards_out[e] = out;
+  a.score_out[e] = done ? 0.0f : episode_score;
+  a.steps_out[e] = done ? 0 : episode_length;
+  a.state_done_out[e] = 0;
+  if constexpr (!kInjected) a.counter_out[e] = a.counter[e] + 1;
+  a.reward[e] = a.parity_zero ? 0.0f : merge;
+  a.done[e] = done;
+  a.changed[e] = changed;
+  a.episode_score[e] = done ? episode_score : 0.0f;
+  a.episode_tile_sum[e] = done ? static_cast<float>(tile_sum) : 0.0f;
+  a.episode_length[e] = done ? episode_length : 0;
+  a.max_tile[e] = done ? static_cast<float>(1 << top) : 0.0f;
+}
+
+template <bool kInjected>
+__global__ void __launch_bounds__(kStepThreads) step_kernel(const StepArgs a) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e < a.n) step_env<kInjected>(a, e);
+}
+
 }  // namespace
 
 // Launches the rollout on `stream` and returns a cudaError_t as an int.
@@ -365,6 +619,55 @@ extern "C" int rein48_rollout(const void* boards_in, const void* score_in, const
     if (err != cudaSuccess) return static_cast<int>(err);
     rollout_kernel<false><<<blocks, threads, kTableBytes, s>>>(b_in, sc_in, st_in, nullptr, tab, b_out, sc_out,
                                                               st_out, st, n, num_steps, key0, key1, env_base);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one autoreset step of n envs on `stream` (one thread an env) and
+// returns a cudaError_t as an int. boards: uint8[n, 16] at a 16-byte
+// boundary; score float32[n]; steps int32[n]; actions, seed, env_id,
+// counter int64[n]; bits: int64 words [n, 4] at element strides (bits_row,
+// bits_col), or null to draw step `counter` of stream (seed, env_id) and
+// write counter + 1 to counter_out. Outputs as engine/vector.StepOutput and
+// the new EnvState's boards, score, steps and done (bool as uint8).
+extern "C" int rein48_step(const void* boards_in, const void* score_in, const void* steps_in, const void* actions,
+                           const void* seed, const void* env_id, const void* counter, const void* bits,
+                           long long bits_row, long long bits_col, void* boards_out,
+                           void* score_out, void* steps_out, void* state_done_out, void* counter_out, void* reward,
+                           void* done, void* changed, void* episode_score, void* episode_tile_sum,
+                           void* episode_length, void* max_tile, long long n, int parity_zero, void* stream) {
+  if (n <= 0) return 0;
+  StepArgs a;
+  a.boards_in = static_cast<const uint4*>(boards_in);
+  a.score_in = static_cast<const float*>(score_in);
+  a.steps_in = static_cast<const int32_t*>(steps_in);
+  a.actions = static_cast<const int64_t*>(actions);
+  a.seed = static_cast<const int64_t*>(seed);
+  a.env_id = static_cast<const int64_t*>(env_id);
+  a.counter = static_cast<const int64_t*>(counter);
+  a.bits = static_cast<const int64_t*>(bits);
+  a.bits_row = bits_row;
+  a.bits_col = bits_col;
+  a.boards_out = static_cast<uint4*>(boards_out);
+  a.score_out = static_cast<float*>(score_out);
+  a.steps_out = static_cast<int32_t*>(steps_out);
+  a.state_done_out = static_cast<uint8_t*>(state_done_out);
+  a.counter_out = static_cast<int64_t*>(counter_out);
+  a.reward = static_cast<float*>(reward);
+  a.done = static_cast<uint8_t*>(done);
+  a.changed = static_cast<uint8_t*>(changed);
+  a.episode_score = static_cast<float*>(episode_score);
+  a.episode_tile_sum = static_cast<float*>(episode_tile_sum);
+  a.episode_length = static_cast<int32_t*>(episode_length);
+  a.max_tile = static_cast<float*>(max_tile);
+  a.n = n;
+  a.parity_zero = parity_zero;
+  const auto blocks = static_cast<unsigned int>((n + kStepThreads - 1) / kStepThreads);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (bits != nullptr) {
+    step_kernel<true><<<blocks, kStepThreads, 0, s>>>(a);
+  } else {
+    step_kernel<false><<<blocks, kStepThreads, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -255,13 +255,13 @@ def _device_table(dev: torch.device) -> torch.Tensor:
     return table
 
 
-_ROLLOUT_ARGTYPES = [ctypes.c_void_p] * 9 + [
+_ROLLOUT_ARGTYPES = (ctypes.c_void_p,) * 9 + (
     ctypes.c_longlong,
     ctypes.c_int,
     ctypes.c_ulonglong,
     ctypes.c_longlong,
     ctypes.c_void_p,
-]
+)
 
 
 def _words_as_int32(bits: torch.Tensor) -> torch.Tensor:
@@ -301,9 +301,7 @@ def _launch(state: EnvState, seed: int, num_steps: int, bits, env_base: int):
     stats = torch.empty((4, n), dtype=torch.int32, device=dev)
     table = _device_table(dev)
 
-    lib = build.load("rollout")
-    fn = lib.rein48_rollout
-    fn.argtypes, fn.restype = _ROLLOUT_ARGTYPES, ctypes.c_int
+    fn = build.bind("rollout", "rein48_rollout", _ROLLOUT_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
             boards.data_ptr(),

@@ -8,10 +8,18 @@ random words from its own Philox stream (``engine/philox.py``), keyed by
 ``(seed, env_id)`` and counted by ``counter``, so env ``i`` steps
 identically whatever the batch size. Each step consumes one five-word
 group of the stream; a policy-driven step ignores the ``ACTION`` word.
+
+On a CUDA device :func:`step_autoreset` and :func:`step_autoreset_from_bits`
+are one launch of the step kernel of ``csrc/rollout.cu`` each, which never
+waits for the device; elsewhere they run the plain step
+(:func:`_step_from_bits`), which the kernel equals bit for bit. The counters
+``engine.step_launches`` and ``engine.step_plain`` (``utils/profiling``)
+count the steps each path took.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -90,10 +98,14 @@ def step_autoreset_from_bits(
     is; :func:`step_autoreset` advances it. One ``engine.step`` span.
     """
     with profiling.span("engine.step"):
+        if state.boards.is_cuda:
+            return _step_kernel(state, actions, bits, reward_mode)
         return _step_from_bits(state, actions, bits, reward_mode)
 
 
 def _step_from_bits(state: EnvState, actions, bits, reward_mode):
+    """The plain step, the kernel's oracle; counted in ``engine.step_plain``."""
+    profiling.count("engine.step_plain")
     moved, merge_score, changed = core.move_boards(state.boards, actions)
     n_blanks = (moved == 0).flatten(-2).sum(-1)
     moved = core.place_tile(
@@ -156,8 +168,78 @@ def step_autoreset(
     Returns ``(new_state, StepOutput)``. One ``engine.step`` span.
     """
     with profiling.span("engine.step"):
+        if state.boards.is_cuda:
+            return _step_kernel(state, actions, None, reward_mode)
         words = philox.step_words(state.seed, state.env_id, state.counter)
         return _advance(state, actions, words, reward_mode)
+
+
+_vp, _ll = ctypes.c_void_p, ctypes.c_longlong
+_STEP_ARGTYPES = (_vp,) * 8 + (_ll, _ll) + (_vp,) * 12 + (_ll, ctypes.c_int, _vp)
+
+
+def _operand(name: str, t, dtype, shape: tuple, dev, *, strided: bool = False) -> torch.Tensor:
+    """``t`` as the step kernel reads it: a ``dtype`` tensor of ``shape`` on
+    ``dev``, contiguous unless ``strided``; anything else raises
+    ``ValueError`` (the wrapper converts and copies nothing)."""
+    if not (
+        torch.is_tensor(t) and t.dtype == dtype and t.device == dev and t.shape == shape
+        and (strided or t.is_contiguous())
+    ):
+        got = f"{t.dtype} {tuple(t.shape)} on {t.device}" if torch.is_tensor(t) else type(t).__name__
+        raise ValueError(f"{name} must be a {'' if strided else 'contiguous '}{dtype}{list(shape)} on {dev}, got {got}")
+    return t
+
+
+def _step_kernel(state: EnvState, actions, bits, reward_mode):
+    """One launch of the step kernel: :func:`_step_from_bits` on ``bits``, or
+    with ``bits`` None on the stream's words at ``state.counter``, counted as
+    :func:`_advance` counts it. Allocates its outputs and never waits for the
+    device; every operand must already be what the kernel reads."""
+    from rein48_tpu_torch import build
+
+    boards = state.boards
+    n = boards.shape[0]
+    if boards.dtype != torch.uint8 or boards.shape[1:] != (core.BOARD_SIZE, core.BOARD_SIZE):
+        raise ValueError(f"boards must be uint8[B, 4, 4], got {boards.dtype} {tuple(boards.shape)}")
+    if not boards.is_contiguous() or boards.data_ptr() % 16:  # the kernel reads a board as one 16-byte word
+        boards = boards.clone(memory_format=torch.contiguous_format)
+    dev, i64 = boards.device, torch.int64
+    score = _operand("state.score", state.score, torch.float32, (n,), dev)
+    steps = _operand("state.steps", state.steps, torch.int32, (n,), dev)
+    actions = _operand("actions", actions, i64, (n,), dev)
+    seed, env_id, counter = (
+        _operand(f"state.{f}", getattr(state, f), i64, (n,), dev) for f in ("seed", "env_id", "counter")
+    )
+    if bits is not None:
+        _operand("bits", bits, i64, (n, 4), dev, strided=True)
+
+    def empty(dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    new_boards = torch.empty_like(boards)
+    new_score, new_steps, new_done = empty(f32), empty(i32), empty(b8)
+    new_counter = state.counter if bits is not None else empty(i64)
+    fields = [empty(f32), empty(b8), empty(b8), empty(f32), empty(f32), empty(i32), empty(f32)]
+    if n:
+        with torch.cuda.device(dev):
+            err = build.bind("rollout", "rein48_step", _STEP_ARGTYPES)(
+                boards.data_ptr(), score.data_ptr(), steps.data_ptr(), actions.data_ptr(),
+                seed.data_ptr(), env_id.data_ptr(), counter.data_ptr(),
+                None if bits is None else bits.data_ptr(), *((0, 0) if bits is None else bits.stride()),
+                new_boards.data_ptr(), new_score.data_ptr(), new_steps.data_ptr(), new_done.data_ptr(),
+                None if bits is not None else new_counter.data_ptr(),
+                *(t.data_ptr() for t in fields),
+                n, reward_mode == RewardMode.PARITY_ZERO, torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"step kernel launch failed with CUDA error {err}")
+        profiling.count("engine.step_launches")
+    new_state = dataclasses.replace(
+        state, boards=new_boards, score=new_score, steps=new_steps, done=new_done, counter=new_counter
+    )
+    return new_state, StepOutput(*fields)
 
 
 def step_batch(

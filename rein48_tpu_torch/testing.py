@@ -102,6 +102,20 @@ def assert_same_rollout(got, want) -> None:
             raise AssertionError(f"the rollouts' {name} differ")
 
 
+def assert_same_step(got, want) -> None:
+    """Two autoreset steps' ``(EnvState, StepOutput)``: every field's dtype,
+    shape and values bit for bit (the step kernel against the plain step)."""
+    import dataclasses
+
+    import torch
+
+    for g, w in zip(got, want):
+        for f in dataclasses.fields(w):
+            a, b = getattr(g, f.name), getattr(w, f.name)
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a.cpu(), b.cpu()):
+                raise AssertionError(f"the steps' {f.name} differ")
+
+
 def assert_sums_close(got, want, scale) -> None:
     """Reassociated float32 sums within ``SUM_ATOL + SUM_RTOL * scale``."""
     excess = float(((got - want).abs() - (SUM_ATOL + SUM_RTOL * scale)).max())

@@ -20,12 +20,12 @@ import torch
 
 from rein48_tpu_torch import Game, native
 from rein48_tpu_torch.agents import ntuple
-from rein48_tpu_torch.engine import fused, philox, vector
+from rein48_tpu_torch.engine import core, fused, philox, vector
 from rein48_tpu_torch.models import nets, obs
 from rein48_tpu_torch.ops import hbm_tables, layer_norm, tables
 from rein48_tpu_torch.testing import (
     LN_GRAD_TOL, ROLLOUT_STATS, assert_ln_forward_close, assert_ln_grads_close, assert_same_rollout,
-    assert_scatter_matches, assert_sums_close, edge_boards, ln_masked_reference_grads, ln_plain,
+    assert_same_step, assert_scatter_matches, assert_sums_close, edge_boards, ln_masked_reference_grads, ln_plain,
 )
 from rein48_tpu_torch.ops import ntuple_value as value_ops
 from rein48_tpu_torch.train import a3c, afterstate, common, dqn, ppo
@@ -131,6 +131,101 @@ def test_rollout_kernel_refuses_exponent_16(cuda):
     with pytest.raises(ValueError, match="at most 15"):
         fused.rollout_random_fused(out, 0, 8)
     assert count("fused.rollout_launches") == before + 1
+
+
+# Step n's words start at lane 5n & 3 = n & 3 of block 5n >> 2; at this n
+# the block is 2**32 - 1 and the step's second block crosses 2**32.
+CROSSING_COUNTER = (2**34 - 4) // 5
+
+
+def step_state(batch: int, device, seed: int, counter: int, env_base: int = 0) -> core.EnvState:
+    """Edge boards and random ones, scores, steps, seeds and env ids (from
+    ``env_base``) as given, counters ``counter .. counter + 3`` (each value
+    of ``5n & 3``)."""
+    g = torch.Generator().manual_seed(batch + seed % 1000 + counter % 1000)
+    state = vector.reset_batch(seed, batch, device)
+    boards = torch.from_numpy(edge_boards(batch, batch + counter % 1000))
+    sparse = torch.randint(0, 16, (batch, 4, 4), generator=g, dtype=torch.uint8)
+    sparse *= torch.rand((batch, 4, 4), generator=g) < 0.6
+    mixed = torch.where((torch.arange(batch) % 2 == 0)[:, None, None], boards, sparse)
+    return dataclasses.replace(
+        state,
+        boards=mixed.to(device),
+        score=(torch.randint(0, 2**22, (batch,), generator=g) + torch.rand(batch, generator=g)).float().to(device),
+        steps=torch.randint(0, 5000, (batch,), generator=g, dtype=torch.int32).to(device),
+        env_id=torch.arange(env_base, env_base + batch, dtype=torch.int64, device=device),
+        counter=(counter + torch.arange(batch, dtype=torch.int64) % 4).to(device),
+    )
+
+
+def plain_step(state, actions, bits=None, reward_mode=core.RewardMode.MERGE_SCORE):
+    """The plain step on the card's tensors: the kernel's oracle."""
+    if bits is not None:
+        return vector._step_from_bits(state, actions, bits, reward_mode)
+    return vector._advance(state, actions, philox.step_words(state.seed, state.env_id, state.counter), reward_mode)
+
+
+@pytest.mark.parametrize("reward_mode", list(core.RewardMode))
+@pytest.mark.parametrize("batch", [1, 256, 1000, 8192])
+def test_engine_step_kernel_matches_plain(cuda, batch, reward_mode):
+    # Edge boards (full, dead, near-full, 2^15 pairs that saturate) under
+    # every action, so illegal moves that spawn nothing too; seeds and env
+    # ids at and above 2**32; counters at each lane, and across a 2**32 block.
+    g = torch.Generator().manual_seed(batch)
+    for seed, counter, env_base in [(7, 1, 0), (2**32 + 7, CROSSING_COUNTER - 2, 2**32 - 5), (2**62 + 3, 2**33, 2**40)]:
+        state = step_state(batch, cuda, seed, counter, env_base)
+        bits = torch.randint(0, 2**32, (batch, 4), generator=g, dtype=torch.int64).to(cuda)
+        for a in [0, 1, 2, 3, None]:
+            actions = (torch.randint(0, 4, (batch,), generator=g) if a is None else torch.full((batch,), a)).to(cuda)
+            got = vector.step_autoreset(state, actions, reward_mode)
+            assert_same_step(got, plain_step(state, actions, reward_mode=reward_mode))
+            assert got[0].seed is state.seed and got[0].env_id is state.env_id
+            # Injected words: the words of a step, strided, and drawn ones.
+            words = philox.step_words(state.seed, state.env_id, state.counter)[:, philox.SPAWN_RANK :]
+            for b in (words, bits):
+                got = vector.step_autoreset_from_bits(state, actions, b, reward_mode)
+                assert_same_step(got, plain_step(state, actions, b, reward_mode))
+                assert got[0].counter is state.counter
+
+
+def test_engine_step_is_one_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    state = step_state(8192, cuda, 3, 5)
+    actions = torch.randint(0, 4, (8192,), device=cuda)
+    bits = philox.step_words(state.seed, state.env_id, state.counter)[:, philox.SPAWN_RANK :]
+    steps = (lambda: vector.step_autoreset(state, actions), lambda: vector.step_autoreset_from_bits(state, actions, bits))
+    for step in steps:
+        step()
+        torch.cuda.synchronize()
+        before = (count("engine.step_launches"), count("engine.step_plain"))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        kernels, launches = profiling.kernel_times(prof)
+        assert launches == 1 and sum(calls for _, calls in kernels.values()) == 1, kernels
+        assert (count("engine.step_launches"), count("engine.step_plain")) == (before[0] + 1, before[1])
+
+
+def test_engine_step_replays_in_a_cuda_graph(cuda):
+    state = step_state(1000, cuda, 9, 2)
+    actions = torch.randint(0, 4, (1000,), device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        vector.step_autoreset(state, actions)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = vector.step_autoreset(state, actions)
+    # New inputs in place, then the replay: the plain step of those inputs.
+    for k in range(3):
+        fresh = step_state(1000, cuda, 9, 11 + k)
+        for f in ("boards", "score", "steps", "counter"):
+            getattr(state, f).copy_(getattr(fresh, f))
+        actions.copy_(torch.randint(0, 4, (1000,), device=cuda))
+        graph.replay()
+        assert_same_step(captured, plain_step(state, actions))
 
 
 def table_inputs(n: int, size: int, device, seed: int = 0):
@@ -909,6 +1004,28 @@ def test_actor_critic_update_on_card(cuda, trainer):
     for (k, n), p in before.items():
         unused = k == "after_model" and n.startswith("policy_")
         assert torch.equal(p, dict(nets[k].named_parameters())[n]) == unused, (k, n)
+
+
+def test_ppo_rollout_with_the_step_kernel_equals_the_plain_step(cuda, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = dataclasses.replace(SMALL_PPO, batch_size=1024, unroll_len=32)
+    state, model, opt = ppo.init_ppo(cfg, 5, device=cuda)
+    step = ppo.make_ppo_step(cfg, model, opt, state.after_model)
+    launches = count("engine.step_launches")
+    got = step.rollout(state)
+    assert count("engine.step_launches") == launches + 32
+    with monkeypatch.context() as m:
+        m.setattr(vector, "_step_kernel", lambda st, a, bits, mode: plain_step(st, a, bits, mode))
+        plain = count("engine.step_plain")
+        want = step.rollout(state)
+        assert count("engine.step_plain") == plain + 32
+    for name in ("boards", "score", "steps", "done", "seed", "env_id", "counter"):
+        assert torch.equal(getattr(got[0], name), getattr(want[0], name)), name
+    for name, x in want[1].items():
+        assert torch.equal(got[1][name], x), name
+    for name, x in want[2].items():
+        assert torch.equal(got[2][name], x), name
 
 
 def test_learner_draws_resume_across_devices(cuda, tmp_path):

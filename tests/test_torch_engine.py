@@ -21,6 +21,7 @@ from rein48_tpu.engine import core as jcore
 from rein48_tpu.engine import lut as jlut
 from rein48_tpu.engine import vector as jvector
 from rein48_tpu_torch.engine import core, lut, philox, vector
+from rein48_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -191,6 +192,41 @@ class TestAutoresetStep:
         state = vector.reset_batch(0, 8, device="cpu")
         _, out = vector.step_autoreset(state, torch.full((8,), core.LEFT), core.RewardMode.PARITY_ZERO)
         assert not out.reward.any()
+
+    def test_off_the_card_both_entry_points_take_the_plain_step(self):
+        state = vector.reset_batch(0, 8, device="cpu")
+        before = profiling.snapshot()
+        vector.step_autoreset(state, torch.full((8,), core.LEFT))
+        vector.step_autoreset_from_bits(state, torch.full((8,), core.UP), torch.zeros((8, 4), dtype=torch.int64))
+        after = profiling.snapshot()
+        assert after["engine.step_plain"] - before.get("engine.step_plain", 0) == 2
+        assert after.get("engine.step_launches", 0) == 0
+
+    @pytest.mark.parametrize(
+        "field, value, match",
+        [("bits", torch.zeros((8, 5), dtype=torch.int64), "bits must be"),
+         ("bits", torch.zeros((8, 4), dtype=torch.int32), "bits must be"),
+         ("boards", torch.zeros((8, 16), dtype=torch.uint8), "boards must be"),
+         ("boards", torch.zeros((8, 4, 4), dtype=torch.int32), "boards must be"),
+         ("actions", torch.zeros(8, dtype=torch.int32), "actions must be"),
+         ("actions", 0, "actions must be"),
+         ("score", torch.zeros(8, dtype=torch.float64), "state.score must be"),
+         ("steps", torch.zeros(1, dtype=torch.int32), "state.steps must be"),
+         ("counter", torch.zeros((8, 2), dtype=torch.int64)[:, 0], "state.counter must be")],
+    )
+    def test_step_kernel_refuses_before_launching(self, field, value, match):
+        # The wrapper's checks run on the host, before any launch: it copies
+        # and converts no operand, so none can hide a copy from the host.
+        state = vector.reset_batch(0, 8, device="cpu")
+        actions, bits = torch.zeros(8, dtype=torch.int64), torch.zeros((8, 4), dtype=torch.int64)
+        if field == "bits":
+            bits = value
+        elif field == "actions":
+            actions = value
+        else:
+            setattr(state, field, value)
+        with pytest.raises(ValueError, match=match):
+            vector._step_kernel(state, actions, bits, core.RewardMode.MERGE_SCORE)
 
 
 class TestStreams:

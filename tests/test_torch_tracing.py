@@ -174,7 +174,8 @@ def test_a_depth1_move_spans_the_tree_and_its_leaves():
     assert all(s.parent == move.id and s.root == move.id for s in named["search.leaf"])
     (step,) = named["engine.step"]
     assert step.parent is None and step.start_ns >= move.end_ns
-    assert trace.counters == {"search.leaf_boards": 2 * 4 * search.CHANCE_BRANCH * 4}
+    # Off the card the move's one engine step is the plain step.
+    assert trace.counters == {"search.leaf_boards": 2 * 4 * search.CHANCE_BRANCH * 4, "engine.step_plain": 1}
 
 
 def test_tracing_yields_the_counters_change():
